@@ -1,0 +1,117 @@
+"""EPC-Net and EPC-Net-L on the dense adjacency route (twin of
+``epcnet_tpu/models/epcnet.py``).
+
+[B, N, 3] submap -> kNN indicator + layer-0 proxy (K1, computed ONCE on xyz)
+-> ProxyConv stack -> multi-scale concat -> per-point lift -> G-VLAD ->
+[B, output_dim] L2-normalised fp32 descriptor.
+
+``adjacency_format`` keeps the JAX meaning and validation. Only the dense
+route is ported: where the JAX model would take the packed or gather route
+(``auto`` past N=16384, or asked for), this one raises. ``use_pallas`` has
+no effect here: a CPU tensor takes the plain twin, a CUDA tensor the kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from epcnet_torch.configs import ModelConfig
+from epcnet_torch.models.layers import ProxyConv, SharedMLP
+from epcnet_torch.models.vlad_head import GVLADHead, compute_dtype
+from epcnet_torch.ops.knn import knn_adjacency
+
+# The JAX model's "auto" cutovers (models/epcnet.py there): packed past this
+# N when the bit-plane layout accepts N, gather past _GATHER_AUTO_N. Kept so
+# that this port runs dense exactly where the JAX model does.
+_PACKED_AUTO_N = 16384
+_GATHER_AUTO_N = 32768
+_CAPACITY_ROUTES = ("the packed and gather adjacency routes are not ported "
+                    "yet (ROADMAP item 6, Capacity routes)")
+
+
+def _packed_layout_supported(n: int, proxy_dtype: str, tile_q: int = 256) -> bool:
+    """The JAX ``packed_layout_supported`` (ops/knn.py there): True iff the
+    bit-plane layout accepts N, from the same tile/unit resolution."""
+    bpe = 9 + (4 if proxy_dtype == "float32" else 2)
+    pow2 = 1 << max(3, n.bit_length() - 1)
+    if pow2 > n:
+        pow2 //= 2
+    tile = min(tile_q, max(8, pow2))
+    npad128 = -(-n // 128) * 128
+    while tile > 8 and tile * npad128 * bpe > 10 * 2**20:
+        tile //= 2
+    tile = max(8, tile)
+    unit = tile * 128 // math.gcd(tile, 128)
+    return n % unit == 0
+
+
+def adjacency_route(cfg: ModelConfig, n: int) -> str:
+    """The eval route the JAX model takes for N points: dense, packed or
+    gather."""
+    fmt = cfg.adjacency_format
+    if fmt == "gather" or (fmt == "auto" and n > _GATHER_AUTO_N):
+        return "gather"
+    if fmt == "packed" or (
+        fmt == "auto" and n > _PACKED_AUTO_N
+        and _packed_layout_supported(n, cfg.compute_dtype)
+    ):
+        return "packed"
+    return "dense"
+
+
+class EPCNet(nn.Module):
+    """Submap [B, N, 3] -> descriptor [B, output_dim] (L2-normalised fp32)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        dtype = compute_dtype(cfg)
+        in_ch = 3
+        for i, ch in enumerate(cfg.proxyconv_channels):
+            self.add_module(f"proxyconv_{i}", ProxyConv(in_ch, ch, cfg.knn_k, dtype))
+            in_ch = ch
+        self.lift = SharedMLP(sum(cfg.proxyconv_channels), cfg.lift_channels, dtype)
+        self.gvlad = GVLADHead(cfg)
+
+    def forward(self, points: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError("training is not ported yet (ROADMAP item 4)")
+        n = points.shape[-2]
+        if adjacency_route(self.cfg, n) != "dense":
+            raise NotImplementedError(
+                f"N={n}, adjacency_format={self.cfg.adjacency_format!r}: "
+                + _CAPACITY_ROUTES
+            )
+        x = points.float()
+        adj, proxy0 = knn_adjacency(x, self.cfg.knn_k, compute_dtype(self.cfg),
+                                    with_proxy=True)
+        return self.forward_graph(x, adj, proxy0)
+
+    def forward_graph(self, x: torch.Tensor, adj: torch.Tensor,
+                      proxy0: torch.Tensor) -> torch.Tensor:
+        """The network after the kNN graph: ``adj`` is the int8 indicator
+        [B, N, N], ``proxy0`` the layer-0 proxy [B, N, 3]. Split from
+        ``forward`` so a caller can feed a graph from another source (the
+        plain twin on the card, to hold the kernel path against it)."""
+        dtype = compute_dtype(self.cfg)
+        f = x.float().to(dtype)
+        a = None
+        scales = []
+        for i in range(len(self.cfg.proxyconv_channels)):
+            if i == 0:
+                proxy = proxy0
+            else:
+                proxy = None
+                if a is None:
+                    a = adj.to(dtype)  # once per forward, shared by layers 1..
+            f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy)
+            scales.append(f)
+        f_lift = self.lift(torch.cat(scales, dim=-1))  # [B, N, feature_dim]
+        return self.gvlad(f_lift)
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

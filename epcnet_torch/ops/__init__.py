@@ -1,0 +1,32 @@
+"""Compute ops of the port. Each hand-written CUDA kernel (``csrc/``) has a
+plain PyTorch twin in the same module: a CPU tensor takes the twin, a CUDA
+tensor the kernel, with no fallback between them."""
+
+from epcnet_torch.ops.adjacency import count_adjacency, neighbor_mean
+from epcnet_torch.ops.knn import knn_adjacency, knn_adjacency_plain, knn_plain
+from epcnet_torch.ops.pairwise import pairwise_sqdist
+from epcnet_torch.ops.retrieval import (
+    dequantize_descriptors,
+    l2_distance_matrix,
+    quantize_descriptors,
+    quantized_distance_matrix,
+    topk_neighbors,
+    topk_neighbors_quantized,
+)
+from epcnet_torch.ops.vlad import vlad_aggregate
+
+__all__ = [
+    "pairwise_sqdist",
+    "knn_plain",
+    "knn_adjacency",
+    "knn_adjacency_plain",
+    "count_adjacency",
+    "neighbor_mean",
+    "vlad_aggregate",
+    "l2_distance_matrix",
+    "topk_neighbors",
+    "quantize_descriptors",
+    "dequantize_descriptors",
+    "quantized_distance_matrix",
+    "topk_neighbors_quantized",
+]

@@ -1,0 +1,95 @@
+"""The port stands alone: it loads no JAX and nothing of ``epcnet_tpu``, it
+keeps its own copy of the configs in step with the JAX package's, and its
+entry points refuse to carry on on the CPU when the card is missing."""
+
+import ast
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from epcnet_tpu import configs as jcfg
+
+from epcnet_torch import configs as tcfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "epcnet_tpu")
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import epcnet_torch\n"
+        "for m in pkgutil.walk_packages(epcnet_torch.__path__, 'epcnet_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('epcnet_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every submodule was imported
+
+
+def _imports(path):
+    """Every module name a file imports, including importlib/__import__
+    calls with a literal name."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_source_scan():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "epcnet_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 16
+    for f in files:
+        for mod in _imports(f):
+            assert mod.split(".")[0] not in FORBIDDEN, (f, mod)
+
+
+def test_configs_copy_in_step():
+    for name in ("ModelConfig", "DataConfig", "TrainConfig", "MeshConfig",
+                 "EvalConfig", "ExperimentConfig"):
+        jf = [(f.name, f.default) for f in dataclasses.fields(getattr(jcfg, name))]
+        tf = [(f.name, f.default) for f in dataclasses.fields(getattr(tcfg, name))]
+        assert jf == tf, name
+    j = jcfg.apply_overrides(jcfg.ExperimentConfig(), ["model.knn_k=12",
+                                                       "model.lift_channels=8,16"])
+    t = tcfg.ExperimentConfig.from_json(j.to_json())
+    assert json.loads(t.to_json()) == json.loads(j.to_json())
+    assert tcfg.epcnet_l_config() == tcfg.ModelConfig(
+        **dataclasses.asdict(jcfg.epcnet_l_config()))
+    with pytest.raises(ValueError, match="vlad_precision"):
+        tcfg.ModelConfig(vlad_precision="fast")
+    with pytest.raises(KeyError, match="unknown config key"):
+        tcfg.apply_overrides(tcfg.ExperimentConfig(), ["model.knn_kk=3"])
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from epcnet_torch.models import get_model
+    from epcnet_torch.serve import PlaceIndex
+    from epcnet_torch.train.step import build_embed_fn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tcfg.ModelConfig()
+    for call in (lambda: get_model(cfg), lambda: get_model(cfg, "cuda"),
+                 lambda: build_embed_fn(cfg), lambda: PlaceIndex(None)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert next(get_model(cfg, "cpu").parameters()).device.type == "cpu"

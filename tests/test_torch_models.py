@@ -1,0 +1,187 @@
+"""The port's model against the JAX package on the CPU: weights from a JAX
+``init`` -> ``flatten_variables`` -> ``load_flat_variables``, BN running
+stats overwritten with seeded values so that BN does real work, the same
+numpy clouds through both.
+
+Tolerances: fp32 descriptors agree to 1e-5 max abs. Under bf16 the two
+frameworks round the same bf16 products after sums taken in another order;
+over 16 seeds (inputs scaled 0.5-20x) the worst gap measured was 1.8e-5 for
+epcnet and 4.9e-6 for epcnet_l, so bf16 is held to 2e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from epcnet_tpu import configs as jcfg
+from epcnet_tpu.cli.export import flatten_variables
+from epcnet_tpu.models import get_model as j_get_model
+from epcnet_tpu.models.layers import ProxyConv as JProxyConv
+from epcnet_tpu.models.layers import SharedMLP as JSharedMLP
+from epcnet_tpu.models.vlad_head import GVLADHead as JGVLADHead
+from epcnet_tpu.ops.knn import packed_layout_supported
+
+from epcnet_torch import configs as tcfg
+from epcnet_torch.models import get_model
+from epcnet_torch.models.epcnet import _packed_layout_supported, adjacency_route
+from epcnet_torch.models.layers import ProxyConv, SharedMLP
+from epcnet_torch.models.vlad_head import GVLADHead
+from epcnet_torch.weights import load_flat_variables
+
+FP32_TOL = 1e-5
+BF16_TOL = 2e-4
+
+# tests/test_golden.py:35-42
+GOLDEN_KW = {
+    "epcnet": dict(num_points=128, knn_k=8, use_pallas=False,
+                   proxyconv_channels=(16, 16), lift_channels=(32, 64),
+                   feature_dim=64, vlad_clusters=8, vlad_groups=4,
+                   vlad_group_dim=16),
+    "epcnet_l": dict(num_points=128, knn_k=8, use_pallas=False,
+                     proxyconv_channels=(8, 8), lift_channels=(16, 32),
+                     feature_dim=32, vlad_clusters=4, vlad_groups=2,
+                     vlad_group_dim=8),
+}
+
+
+def _cfgs(name, **kw):
+    kw = {**GOLDEN_KW.get(name, {}), **kw}
+    if name == "epcnet_l":
+        return jcfg.epcnet_l_config(**kw), tcfg.epcnet_l_config(**kw)
+    return jcfg.ModelConfig(**kw), tcfg.ModelConfig(**kw)
+
+
+def _seeded_stats(batch_stats, rng):
+    """mean ~ N(0, 0.1^2), var ~ U(0.5, 1.5), in the tree's order."""
+    return jax.tree_util.tree_map_with_path(
+        lambda p, a: jnp.asarray(
+            (rng.uniform(0.5, 1.5, a.shape) if p[-1].key == "var"
+             else rng.normal(0.0, 0.1, a.shape)).astype(np.float32)),
+        batch_stats)
+
+
+def _both(name, seed, x, stats=True, **kw):
+    jc, tc = _cfgs(name, **kw)
+    jm = j_get_model(jc)
+    v = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x), train=False)
+    if stats:
+        v = {"params": v["params"],
+             "batch_stats": _seeded_stats(v["batch_stats"], np.random.RandomState(seed))}
+    want = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
+    tm = get_model(tc, device="cpu")
+    load_flat_variables(tm, flatten_variables(v["params"], v.get("batch_stats")))
+    with torch.inference_mode():
+        got = tm(torch.tensor(x)).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["epcnet", "epcnet_l"])
+def test_model_matches_jax(name, dtype):
+    x = np.random.RandomState(21).uniform(-1, 1, (2, 128, 3)).astype(np.float32)
+    got, want = _both(name, 3, x, compute_dtype=dtype)
+    assert got.shape == (2, 256) and got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["epcnet", "epcnet_l"])
+def test_golden_descriptors_reproduced(name):
+    """tests/golden_descriptors.npz (JAX init from PRNGKey(7), bf16)."""
+    golden = np.load("tests/golden_descriptors.npz")[name]
+    x = np.random.RandomState(12345).uniform(-1, 1, (2, 128, 3)).astype(np.float32)
+    got, _ = _both(name, 7, x, stats=False)
+    np.testing.assert_allclose(got, golden, atol=BF16_TOL, rtol=0)
+
+
+def test_full_width_fp32():
+    """The default ModelConfig's widths (2,742,144 params) at N=512, B=1."""
+    x = np.random.RandomState(22).uniform(-1, 1, (1, 512, 3)).astype(np.float32)
+    got, want = _both("epcnet", 5, x, num_points=512, compute_dtype="float32")
+    np.testing.assert_allclose(got, want, atol=FP32_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("groups,group_dim,dtype", [
+    (4, 16, "float32"), (4, 16, "bfloat16"), (1, 256, "float32"),
+])
+def test_gvlad_head_matches(groups, group_dim, dtype):
+    """Grouped FC + out_fc, and the G=1 / group_dim=output_dim skip."""
+    kw = dict(feature_dim=24, vlad_clusters=6, vlad_groups=groups,
+              vlad_group_dim=group_dim, compute_dtype=dtype)
+    jc, tc = _cfgs("epcnet", **kw)
+    f = np.random.RandomState(23).randn(3, 40, 24).astype(np.float32)
+    head = JGVLADHead(jc)
+    v = head.init(jax.random.PRNGKey(1), jnp.asarray(f), False, 0.9)
+    want = np.asarray(head.apply(v, jnp.asarray(f), False, 0.9))
+    th = GVLADHead(tc)
+    assert th.skip_out_fc == (groups == 1) and hasattr(th, "out_fc") != (groups == 1)
+    load_flat_variables(th, flatten_variables(v["params"], None))
+    with torch.inference_mode():
+        got = th(torch.tensor(f)).numpy()
+    np.testing.assert_allclose(got, want, atol=FP32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_proxyconv_and_shared_mlp_match(dtype):
+    rng = np.random.RandomState(24)
+    n, k = 60, 5
+    f = rng.randn(2, n, 8).astype(np.float32)
+    ind = np.zeros((2, n, n), np.int8)
+    for b in range(2):
+        for i in range(n):
+            ind[b, i, rng.choice(n, k, replace=False)] = 1
+    jd = jnp.dtype(dtype)
+    jf = jnp.asarray(f).astype(jd)
+    pc, mlp = JProxyConv(12, knn_k=k, dtype=jd), JSharedMLP((16, 10), dtype=jd)
+    vp = pc.init(jax.random.PRNGKey(2), jf, jnp.asarray(ind), False, 0.9)
+    vp = {"params": vp["params"], "batch_stats": _seeded_stats(vp["batch_stats"], rng)}
+    h = pc.apply(vp, jf, jnp.asarray(ind), False, 0.9)
+    vm = mlp.init(jax.random.PRNGKey(3), h, False, 0.9)
+    vm = {"params": vm["params"], "batch_stats": _seeded_stats(vm["batch_stats"], rng)}
+    want = np.asarray(mlp.apply(vm, h, False, 0.9).astype(jnp.float32))
+
+    td = getattr(torch, dtype)
+    tpc, tmlp = ProxyConv(8, 12, k, td), SharedMLP(12, (16, 10), td)
+    load_flat_variables(tpc, flatten_variables(vp["params"], vp["batch_stats"]))
+    load_flat_variables(tmlp, flatten_variables(vm["params"], vm["batch_stats"]))
+    with torch.inference_mode():
+        th = tpc(torch.tensor(f).to(td), torch.tensor(ind).to(td))
+        got = tmlp(th)
+    assert got.dtype == td
+    # bf16 activations here are O(1), not unit-normalised: 2e-2 is ~2 bf16 ulps
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=FP32_TOL if dtype == "float32" else 2e-2)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        tmlp(th, train=True)
+
+
+def test_adjacency_routes_follow_jax():
+    for n in [128, 4096, 16384, 16385, 20000, 20480, 32768, 32769]:
+        for dt in ("bfloat16", "float32"):
+            assert _packed_layout_supported(n, dt) == packed_layout_supported(n, proxy_dtype=dt), (n, dt)
+    _, tc = _cfgs("epcnet")
+    assert adjacency_route(tc, 4096) == "dense"
+    assert adjacency_route(tc, 20480) == "packed"
+    assert adjacency_route(tc, 20000) == "dense"  # packed layout refuses 20000
+    assert adjacency_route(tc, 40000) == "gather"
+    assert adjacency_route(tc.variant(adjacency_format="dense"), 40000) == "dense"
+    for fmt in ("packed", "gather"):
+        m = get_model(tc.variant(adjacency_format=fmt), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+            m(torch.zeros(1, 128, 3))
+    with pytest.raises(ValueError, match="adjacency_format"):
+        tcfg.ModelConfig(adjacency_format="pakced")
+
+
+def test_get_model_names():
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        get_model(tcfg.pointnetvlad_config(), device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model(tcfg.ModelConfig(name="dgcnn"), device="cpu")
+    m = get_model(tcfg.ModelConfig(), device="cpu")
+    assert sum(p.numel() for p in m.parameters()) == 2_742_144
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        m(torch.zeros(1, 64, 3), train=True)

@@ -1,0 +1,182 @@
+"""The port's op twins against the JAX package on the CPU: the same numpy
+inputs, made from a seed, through both."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from epcnet_tpu.ops import adjacency as jadj
+from epcnet_tpu.ops import retrieval as jret
+from epcnet_tpu.ops import vlad as jvlad
+from epcnet_tpu.ops.knn import knn_jnp
+from epcnet_tpu.ops.pairwise import pairwise_sqdist as j_pairwise
+
+from epcnet_torch.ops import adjacency as tadj
+from epcnet_torch.ops import retrieval as tret
+from epcnet_torch.ops import vlad as tvlad
+from epcnet_torch.ops.knn import knn_plain
+from epcnet_torch.ops.pairwise import pairwise_sqdist
+
+BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _within_bf16_ulps(got, want, ulps=1):
+    """|got - want| <= ulps * (bf16 spacing at |want|), elementwise."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    spacing = BF16_ULP * 2.0 ** np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+    return np.all(np.abs(got - want) <= ulps * spacing)
+
+
+def test_pairwise_sqdist_bit_equal():
+    x = np.random.RandomState(1).randn(2, 500, 3).astype(np.float32)
+    np.testing.assert_array_equal(pairwise_sqdist(_t(x)).numpy(),
+                                  np.asarray(j_pairwise(jnp.asarray(x))))
+
+
+def test_pairwise_sqdist_wide_norm_expansion():
+    x = np.random.RandomState(2).randn(2, 40, 16).astype(np.float32)
+    y = np.random.RandomState(3).randn(2, 30, 16).astype(np.float32)
+    got = pairwise_sqdist(_t(x), _t(y)).numpy()
+    want = np.asarray(j_pairwise(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    assert got.min() >= 0.0
+
+
+def _knn_cases():
+    rng = np.random.RandomState(4)
+    ties = np.zeros((1, 16, 3), np.float32)
+    ties[0, :, 0] = np.repeat(np.arange(8), 2)  # tests/test_knn.py:47
+    return {
+        "random64": (rng.randn(2, 64, 3).astype(np.float32), 4),
+        "random300": (rng.randn(2, 300, 3).astype(np.float32), 10),
+        "pairs_tied": (ties, 4),
+        "all_identical": (np.ones((1, 40, 3), np.float32), 5),  # :94
+        "k_equals_n": (rng.randn(1, 32, 3).astype(np.float32), 32),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_knn_cases()))
+def test_knn_plain_matches_knn_jnp(case):
+    x, k = _knn_cases()[case]
+    idx, dist = knn_plain(_t(x), k, return_dists=True)
+    jidx, jdist = knn_jnp(jnp.asarray(x), k, return_dists=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(dist.numpy(), np.asarray(jdist))
+    if case == "all_identical":
+        np.testing.assert_array_equal(idx[0, 0].numpy(), np.arange(5))
+
+
+def test_count_adjacency_matches():
+    rng = np.random.RandomState(5)
+    idx = rng.randint(0, 300, (2, 300, 9)).astype(np.int32)  # repeats counted
+    got = tadj.count_adjacency(_t(idx), 300).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jadj.count_adjacency(jnp.asarray(idx), 300)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_neighbor_mean_matches(dtype):
+    rng = np.random.RandomState(6)
+    k = 7
+    x = rng.randn(2, 120, 3).astype(np.float32)
+    ind = np.asarray(jadj.count_adjacency(knn_jnp(jnp.asarray(x), k), 120, jnp.int8))
+    f = rng.randn(2, 120, 24).astype(np.float32)
+    jf = jnp.asarray(f).astype(dtype)
+    want = np.asarray(jadj.neighbor_mean(jf, adjacency=jnp.asarray(ind),
+                                         compute_dtype=jnp.dtype(dtype),
+                                         adjacency_scale=1.0 / k).astype(jnp.float32))
+    tf = _t(f).to(getattr(torch, dtype))
+    got = tadj.neighbor_mean(tf, _t(ind), getattr(torch, dtype), 1.0 / k)
+    assert got.dtype == tf.dtype
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    else:  # an fp32 sum in another order may round to the neighbouring bf16
+        assert _within_bf16_ulps(got, want)
+
+
+def _vlad_inputs(seed, mask=False):
+    rng = np.random.RandomState(seed)
+    f = rng.randn(3, 50, 16).astype(np.float32)
+    logits = (2 * rng.randn(3, 50, 6)).astype(np.float32)
+    cent = rng.randn(6, 16).astype(np.float32) * 0.25
+    m = (rng.uniform(size=(3, 50)) > 0.3).astype(np.float32) if mask else None
+    return f, logits, cent, m
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_vlad_aggregate_highest_matches(mask):
+    f, logits, cent, m = _vlad_inputs(7, mask)
+    want = np.asarray(jvlad.vlad_aggregate(
+        jnp.asarray(f), jnp.asarray(logits), jnp.asarray(cent),
+        mask=None if m is None else jnp.asarray(m)))
+    got = tvlad.vlad_aggregate(_t(f), _t(logits), _t(cent),
+                               mask=None if m is None else _t(m)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_vlad_aggregate_default_precision():
+    """precision="default": bf16 operands, fp32 sum. Exact against the same
+    arithmetic spelled out (bf16-rounded Aᵀ and X into the JAX tail), and
+    within bf16 drift of the fp32 result."""
+    f, logits, cent, _ = _vlad_inputs(8)
+    a = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    rb = lambda v: np.asarray(jnp.asarray(v).astype(jnp.bfloat16).astype(jnp.float32))
+    s = np.einsum("bnc,bnd->bcd", rb(a), rb(f))
+    want = np.asarray(jvlad._finish(jnp.asarray(s), jnp.asarray(a.sum(-2)),
+                                    jnp.asarray(cent), 1e-12))
+    got = tvlad.vlad_aggregate(_t(f), _t(logits), _t(cent), precision="default").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    fp32 = np.asarray(jvlad.vlad_aggregate(jnp.asarray(f), jnp.asarray(logits),
+                                           jnp.asarray(cent)))
+    np.testing.assert_allclose(got, fp32, atol=2e-2)
+    with pytest.raises(ValueError, match="precision"):
+        tvlad.vlad_aggregate(_t(f), _t(logits), _t(cent), precision="fast")
+
+
+def _unit_rows(rng, n, d=32):
+    v = rng.normal(size=(n, d)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def test_retrieval_fp32_matches():
+    rng = np.random.RandomState(9)
+    db = _unit_rows(rng, 300)
+    db[200:210] = db[3]  # exact duplicates: ties resolve to the lowest index
+    q = np.concatenate([db[:5], _unit_rows(rng, 11)])
+    np.testing.assert_allclose(
+        tret.l2_distance_matrix(_t(q), _t(db)).numpy(),
+        np.asarray(jret.l2_distance_matrix(jnp.asarray(q), jnp.asarray(db))),
+        rtol=1e-5, atol=1e-6)
+    ids, d = tret.topk_neighbors(_t(q), _t(db), 12)
+    jids, jd = jret.topk_neighbors(jnp.asarray(q), jnp.asarray(db), 12)
+    assert ids.dtype == torch.int32
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ids[3, :11].numpy(), [3, *range(200, 210)])
+
+
+def test_retrieval_int8_matches():
+    rng = np.random.RandomState(10)
+    db = _unit_rows(rng, 200)
+    q = db[:20]
+    qi, sc = tret.quantize_descriptors(_t(db))
+    jqi, jsc = jret.quantize_descriptors(jnp.asarray(db))
+    assert qi.dtype == torch.int8
+    np.testing.assert_array_equal(qi.numpy(), np.asarray(jqi))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+    np.testing.assert_array_equal(tret.dequantize_descriptors(qi, sc).numpy(),
+                                  np.asarray(jret.dequantize_descriptors(jqi, jsc)))
+    np.testing.assert_allclose(
+        tret.quantized_distance_matrix(_t(q), qi, sc).numpy(),
+        np.asarray(jret.quantized_distance_matrix(jnp.asarray(q), jqi, jsc)),
+        rtol=1e-5, atol=1e-5)
+    ids, _ = tret.topk_neighbors_quantized(_t(q), qi, sc, 5)
+    jids, _ = jret.topk_neighbors_quantized(jnp.asarray(q), jqi, jsc, 5)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(ids[:, 0].numpy(), np.arange(20))
