@@ -3,19 +3,26 @@
 
   python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from ``epcnet_torch/csrc`` with
-nvcc, holds each against its plain PyTorch version on the card, builds the
-full-width EPC-Net (the default ModelConfig: 2,742,144 parameters, N=4096,
-k=20, bf16) from seeded random weights, and serves it: a PlaceIndex (fp32,
-then int8) takes 64 seeded submaps and answers requests through
-``PlaceIndex.query`` and ``QueryScheduler``; every submap must retrieve
-itself at rank 0. Kernel launch counts are zeroed just before that serving
-run and read just after it.
+Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
+(K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``), holds each
+against its plain PyTorch version on the card, builds the full-width EPC-Net
+(the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
+random weights, and serves it on each adjacency route:
 
-Output: progress lines, then a ``{"kernels": [...]}`` line, timing lines,
-the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without a card it exits 2 and prints no result. Needs no network.
+- dense (N=4096): a PlaceIndex (fp32, then int8) takes 64 seeded submaps and
+  answers requests through ``PlaceIndex.query`` and ``QueryScheduler``;
+- the capacity routes: at N=32768 ``auto`` takes the packed route (K3 + K4)
+  and at N=65536 the gather route (K2); an index takes 16 and 8 submaps.
+
+Every submap must retrieve itself at rank 0. Kernel launch counts are zeroed
+just before each serving run and read just after it. At N=32768 the three
+routes also run side by side on the same clouds and weights, and their
+descriptors must agree.
+
+Output: progress lines with each phase's seconds, then a ``{"kernels":
+[...]}`` line, timing lines, the card's name and power limit, and as the last
+line ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero; without a card it exits 2 and prints no result. Needs no network.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import torch
 
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.models import param_count
-from epcnet_torch.ops import _build, knn
+from epcnet_torch.models.epcnet import adjacency_route
+from epcnet_torch.ops import _build, adjacency, knn
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.weights import init_flat_variables
@@ -38,10 +46,56 @@ from epcnet_torch.weights import init_flat_variables
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_ULP = 2.0 ** -7
+# a 1-ulp bf16 difference in a neighbour mean moves a descriptor entry by
+# ~1e-4 (K1 against its plain twin at N=4096); the routes are held to 1e-3
+ROUTE_TOL = 1e-3
+# every launch counter of the port: (wrapper, attribute)
+COUNTERS = {
+    "K1": (knn.knn_adjacency_cuda, "launches"),
+    "K1'": (knn.knn_adjacency_cuda, "launches_no_proxy"),
+    "K2": (knn.knn_cuda, "launches"),
+    "K3": (knn.knn_packed_cuda, "launches"),
+    "K4": (adjacency.packed_neighbor_mean_cuda, "launches"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def zero_counts() -> None:
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+class Phase:
+    """Times a phase on the host clock and prints its seconds."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            torch.cuda.synchronize()
+            log(f"phase {self.name}: {time.perf_counter() - self.t0:.2f} s")
+
+
+def bf16_spacing(want: torch.Tensor) -> torch.Tensor:
+    return BF16_ULP * torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))))
+
+
+def bound(nbytes: float, ops: float):
+    """The least time for the work, in ms, and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -89,11 +143,63 @@ def check_k1(x, k, dtype, with_proxy=True) -> float:
     got, want = proxy.float(), proxy_p.float()
     err = (got - want).abs()
     if dtype == torch.bfloat16:
-        spacing = BF16_ULP * torch.exp2(torch.floor(torch.log2(
-            want.abs().clamp_min(2.0 ** -126))))
-        assert bool((err <= spacing).all()), f"K1 proxy off by more than 1 bf16 ulp: {err.max()}"
+        assert bool((err <= bf16_spacing(want)).all()), \
+            f"K1 proxy off by more than 1 bf16 ulp: {err.max()}"
     else:
         assert bool((err <= 1e-6 * want.abs() + 1e-7).all()), f"K1 proxy fp32 error {err.max()}"
+    return float(err.max())
+
+
+def check_k2(x, k, with_adjacency=False) -> None:
+    """K2 against its plain version: ids and distances exactly equal (and
+    the optional indicator equal to K1's plain version)."""
+    out = knn.knn_cuda(x, k, return_dists=True, with_adjacency=with_adjacency)
+    ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
+    torch.cuda.synchronize()
+    shape = tuple(x.shape[:2])
+    assert torch.equal(out[0], ids_p), f"K2 ids differ (B,N,k={shape},{k})"
+    assert torch.equal(out[1], dists_p), f"K2 distances differ (B,N,k={shape},{k})"
+    if with_adjacency:
+        adj_p, _ = knn.knn_adjacency_plain(x, k, with_proxy=False)
+        assert torch.equal(out[2], adj_p), f"K2 indicator differs (B,N,k={shape},{k})"
+    del out, ids_p, dists_p
+
+
+def check_k3(x, k, dtype) -> float:
+    """K3 against its plain version: the planes exactly equal, the proxy
+    within 1 bf16 ulp (bf16) or 1e-6 relative (fp32), and equal to K1's bit
+    for bit (one selection core). Returns the proxy's max abs difference."""
+    planes, proxy = knn.knn_packed_cuda(x, k, dtype)
+    planes_p, proxy_p = knn.knn_adjacency_plain(x, k, dtype, fmt="packed")
+    torch.cuda.synchronize()
+    bad = int((planes != planes_p).sum())
+    assert bad == 0, f"K3 planes differ in {bad} words (B,N,k={tuple(x.shape[:2])},{k})"
+    assert bool((planes < 0).any()), "plane 31 (the sign bit) never set"
+    del planes_p
+    got, want = proxy.float(), proxy_p.float()
+    err = (got - want).abs()
+    if dtype == torch.bfloat16:
+        assert bool((err <= bf16_spacing(want)).all()), f"K3 proxy error {err.max()}"
+    else:
+        assert bool((err <= 1e-6 * want.abs() + 1e-7).all()), f"K3 proxy error {err.max()}"
+    proxy_k1 = knn.knn_adjacency_cuda(x, k, dtype)[1]
+    assert torch.equal(proxy, proxy_k1), "K3's proxy differs from K1's"
+    return float(err.max())
+
+
+def check_k4(f, planes, k, dtype) -> float:
+    """K4 against its plain version (unpack, then cuBLAS with an fp32 sum):
+    the two sum in another order, so they differ by fp32 rounding of the
+    sum, at most ~1e-6 of the mean of |F| over the set bits; bf16 results
+    are held to 1 bf16 ulp plus that, fp32 results to that. Returns the max
+    abs difference."""
+    got = adjacency.packed_neighbor_mean_cuda(f, planes, k, dtype).float()
+    want = adjacency.packed_neighbor_mean_plain(f, planes, k, dtype).float()
+    scale = adjacency.packed_neighbor_mean_plain(f.abs(), planes, k, dtype).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = 1.01e-6 * scale + (bf16_spacing(want) if f.dtype == torch.bfloat16 else 0)
+    assert bool((err <= tol).all()), f"K4 error {float(err.max())} above tolerance"
     return float(err.max())
 
 
@@ -106,10 +212,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # -- 1. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    reports = _build.build(["knn_adj"])
-    log(f"phase build: {time.perf_counter() - t0:.3f} s")
+    # -- 1. build: one nvcc per source, all started together ---------------
+    with Phase("build"):
+        reports = _build.build(_build.SOURCES)
     for src, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -123,111 +228,273 @@ def main() -> int:
     def cloud(b, npts):
         return torch.tensor(rng.uniform(-1, 1, (b, npts, 3)).astype(np.float32), device=dev)
 
-    x8 = cloud(8, n)
-    x32 = cloud(32, n)
-    err = check_k1(x8, k, bf16)
-    err = max(err, check_k1(x32, k, bf16))  # the serving batch
-    grid = torch.round(cloud(2, n) * 6) / 6  # coarse grid: ties everywhere
-    grid[0, 40:61] = grid[0, 5]
-    check_k1(grid, k, bf16)
-    check_k1(grid, k, torch.float32)
-    check_k1(torch.ones(1, 1000, 3, device=dev), k, bf16)  # all identical
-    check_k1(cloud(3, 1000), k, bf16)  # odd N
-    check_k1(cloud(2, 1001), 7, torch.float32)
-    check_k1(cloud(2, 33), 33, bf16)  # k = N
-    check_k1(cloud(1, 1), 1, bf16)
-    check_k1(cloud(2, 517), 20, bf16, with_proxy=False)
-    check_k1(cloud(1, 20000), k, bf16)  # xyz read from global memory
+    with Phase("K1 check"):
+        x8 = cloud(8, n)
+        x32 = cloud(32, n)
+        err = check_k1(x8, k, bf16)
+        err = max(err, check_k1(x32, k, bf16))  # the serving batch
+        grid = torch.round(cloud(2, n) * 6) / 6  # coarse grid: ties everywhere
+        grid[0, 40:61] = grid[0, 5]
+        check_k1(grid, k, bf16)
+        check_k1(grid, k, torch.float32)
+        check_k1(torch.ones(1, 1000, 3, device=dev), k, bf16)  # all identical
+        check_k1(cloud(3, 1000), k, bf16)  # odd N
+        check_k1(cloud(2, 1001), 7, torch.float32)
+        check_k1(cloud(2, 33), 33, bf16)  # k = N
+        check_k1(cloud(1, 1), 1, bf16)
+        check_k1(cloud(2, 517), 20, bf16, with_proxy=False)
+        check_k1(cloud(1, 20000), k, bf16)  # xyz read from global memory
     log(f"phase K1 check: ok (indicator exact on 11 cases; proxy max abs err {err})")
 
-    # -- 3. the full-width model from seeded weights -----------------------
-    flat = init_flat_variables(cfg, seed=0)
-    embed = build_embed_fn(cfg, variables=flat)
-    model = embed.model
-    assert param_count(model) == 2_742_144, param_count(model)
+    # -- 3. K2 against its plain version -----------------------------------
+    # the capacity routes' clouds: 16 submaps at N=32768, 8 at N=65536
+    sub32k = submaps(np.random.default_rng(32768), 16, 32768)
+    sub64k = submaps(np.random.default_rng(65536), 8, 65536)
+    with Phase("K2 check"):
+        check_k2(cloud(2, n), k)
+        check_k2(grid, k)  # ties
+        check_k2(torch.round(cloud(2, 1001) * 4) / 4, 7)  # odd N, ties
+        check_k2(cloud(1, 33), 33)  # k = N
+        check_k2(cloud(1, 1), 1)
+        check_k2(torch.tensor(sub64k[:1], device=dev), k)  # the gather route's cloud
+        check_k2(cloud(1, 131072), k)  # the largest rung the JAX package ran
+        check_k2(grid, k, with_adjacency=True)
+        check_k2(cloud(2, n), k, with_adjacency=True)
+    log("phase K2 check: ok (ids and distances exact on 9 cases up to N=131072; "
+        "indicator exact at N=4096)")
+
+    # -- 4. K3 against its plain version -----------------------------------
+    with Phase("K3 check"):
+        x_pack = torch.tensor(sub32k[:2], device=dev)  # the packed route's batch
+        err_k3 = check_k3(x_pack, k, bf16)
+        err_k3 = max(err_k3, check_k3(torch.round(cloud(2, 32768) * 8) / 8, k, bf16))
+        check_k3(torch.round(cloud(2, 1024) * 4) / 4, 7, torch.float32)
+        check_k3(cloud(1, 32), 32, bf16)  # k = N, one word a row
+        torch.cuda.empty_cache()
+    log(f"phase K3 check: ok (planes exact on 4 cases; proxy max abs err {err_k3}, "
+        "equal to K1's)")
+
+    # -- 5. K4 against its plain version -----------------------------------
+    with Phase("K4 check"):
+        planes, _ = knn.knn_packed_cuda(x_pack, k, bf16)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        f64 = torch.randn(2, 32768, 64, device=dev, generator=gen).to(bf16)
+        err_k4 = check_k4(f64, planes, k, bf16)  # the path's planes, k bits a row
+
+        def words(shape):
+            return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                                 device=dev, generator=gen)
+
+        sparse = words(planes.shape) & words(planes.shape) & words(planes.shape) \
+            & words(planes.shape)  # 1/16 dense: popcount ~2048 a row, not k
+        sparse |= torch.iinfo(torch.int32).min  # plane 31 set in every word
+        err_rand = check_k4(f64, sparse, k, bf16)
+        check_k4(f64.float(), sparse, k, torch.float32)
+        del sparse
+        torch.cuda.empty_cache()
+    log(f"phase K4 check: ok (max abs err {err_k4} on K3's planes, {err_rand} on a "
+        "1/16-dense mask; fp32 within 1e-6 of mean |F|)")
+
+    # -- 6. the full-width model from seeded weights -----------------------
+    with Phase("model"):
+        flat = init_flat_variables(cfg, seed=0)
+        embed = build_embed_fn(cfg, variables=flat)
+        model = embed.model
+        assert param_count(model) == 2_742_144, param_count(model)
     log(f"phase model: epcnet, {param_count(model)} params, N={n}, k={k}, {cfg.compute_dtype}")
 
-    # -- 4. descriptors: kernel path against the plain-twin path -----------
-    with torch.inference_mode():
+    # -- 7. descriptors: kernel path against the plain-twin path -----------
+    with Phase("descriptors"), torch.inference_mode():
         d_kernel = embed(x8)
         d_plain = model.forward_graph(x8, *knn.knn_adjacency_plain(x8, k, bf16))
-    torch.cuda.synchronize()
     assert d_kernel.shape == (8, 256) and bool(torch.isfinite(d_kernel).all())
     norms = torch.linalg.vector_norm(d_kernel, dim=-1)
     assert bool(((norms - 1).abs() < 1e-5).all()), norms
     desc_err = float((d_kernel - d_plain).abs().max())
-    # a 1-ulp bf16 proxy difference moves a descriptor entry by ~1e-4
-    assert desc_err <= 1e-3, desc_err
+    assert desc_err <= ROUTE_TOL, desc_err
     log(f"phase descriptors: kernel vs plain-twin path max abs err {desc_err}")
 
-    # -- 5. serving: the main path, with launch counts zeroed --------------
+    # -- 8. the three routes side by side at N=32768, B=2 ------------------
+    routes = {fmt: build_embed_fn(cfg.variant(adjacency_format=fmt), variables=flat)
+              for fmt in ("dense", "packed", "gather")}
+    with Phase("routes"):
+        assert adjacency_route(cfg, 32768) == "packed"
+        zero_counts()
+        d_auto = embed(x_pack)
+        assert read_counts()["K3"] == 1 and read_counts()["K4"] == 3, read_counts()
+        d_route = {fmt: e(x_pack) for fmt, e in routes.items()}
+        assert torch.equal(d_auto, d_route["packed"])
+        route_err = {}
+        for fmt in ("packed", "gather"):
+            d = d_route[fmt]
+            assert d.shape == (2, 256) and bool(torch.isfinite(d).all()), fmt
+            route_err[fmt] = float((d - d_route["dense"]).abs().max())
+            assert route_err[fmt] <= ROUTE_TOL, (fmt, route_err)
+        torch.cuda.empty_cache()
+    log(f"phase routes: auto took packed at N=32768; descriptors against the dense "
+        f"route, max abs err {route_err} (tolerance {ROUTE_TOL})")
+
+    # -- 9. serving at N=4096, the dense route, launch counts zeroed -------
     sub = submaps(np.random.default_rng(1), 64, n)
-    knn.knn_adjacency_cuda.launches = 0
-    requests = 0
-    for quant in ("none", "int8"):
-        ix = PlaceIndex(embed, cfg.output_dim, embed_batch=32, quantize=quant,
-                        num_points=n)
-        ix.warmup()
-        ix.add(sub, metadata=[f"submap_{i}" for i in range(len(sub))])
-        for s in (0, 32):  # every added submap retrieves itself at rank 0
-            ids, _ = ix.query(sub[s:s + 32], k=5)
-            np.testing.assert_array_equal(ids[:, 0], np.arange(s, s + 32))
-        for i in range(8):  # single-submap requests
-            ids, _ = ix.query(sub[7 * i:7 * i + 1], k=5)
-            assert ids[0, 0] == 7 * i, (quant, i, ids)
-        requests += 8
-        sched = QueryScheduler(ix, k=5, max_wait_ms=5.0)
-        try:
-            futs = [sched.submit(sub[i]) for i in range(3, 64, 4)]
-            for j, fut in enumerate(futs):
-                ids, dists = fut.result(timeout=300)
-                assert ids[0] == 3 + 4 * j and np.isfinite(dists).all(), (quant, j, ids)
-            requests += len(futs)
-            m = sched.metrics()
-            assert m["errors"] == 0 and m["requests"] == len(futs)
-        finally:
-            sched.stop()
-        assert ix.metadata([5]) == ["submap_5"]
-        log(f"phase serve {quant}: 64 submaps self-retrieved at rank 0; "
-            f"{ix.metrics()['queries']} queries, scheduler avg batch {m['avg_batch']:.2f}")
-    launches = knn.knn_adjacency_cuda.launches
-    assert launches >= 1, "the serving path never launched K1"
-    log(f"phase serve: {requests} requests answered; K1 launches {launches}")
+    with Phase("serve"):
+        zero_counts()
+        requests = 0
+        for quant in ("none", "int8"):
+            ix = PlaceIndex(embed, cfg.output_dim, embed_batch=32, quantize=quant,
+                            num_points=n)
+            ix.warmup()
+            ix.add(sub, metadata=[f"submap_{i}" for i in range(len(sub))])
+            for s in (0, 32):  # every added submap retrieves itself at rank 0
+                ids, _ = ix.query(sub[s:s + 32], k=5)
+                np.testing.assert_array_equal(ids[:, 0], np.arange(s, s + 32))
+            for i in range(8):  # single-submap requests
+                ids, _ = ix.query(sub[7 * i:7 * i + 1], k=5)
+                assert ids[0, 0] == 7 * i, (quant, i, ids)
+            requests += 8
+            sched = QueryScheduler(ix, k=5, max_wait_ms=5.0)
+            try:
+                futs = [sched.submit(sub[i]) for i in range(3, 64, 4)]
+                for j, fut in enumerate(futs):
+                    ids, dists = fut.result(timeout=300)
+                    assert ids[0] == 3 + 4 * j and np.isfinite(dists).all(), (quant, j, ids)
+                requests += len(futs)
+                m = sched.metrics()
+                assert m["errors"] == 0 and m["requests"] == len(futs)
+            finally:
+                sched.stop()
+            assert ix.metadata([5]) == ["submap_5"]
+            log(f"phase serve {quant}: 64 submaps self-retrieved at rank 0; "
+                f"{ix.metrics()['queries']} queries, scheduler avg batch {m['avg_batch']:.2f}")
+        dense_counts = read_counts()
+    assert dense_counts["K1"] >= 1, "the serving path never launched K1"
+    log(f"phase serve: {requests} requests answered; launches {dense_counts}")
 
-    # -- 6. timings --------------------------------------------------------
-    def k1_numbers(x):
-        b = x.shape[0]
-        ms = cuda_ms(lambda: knn.knn_adjacency_cuda(x, k, bf16), 20)
-        plain = cuda_ms(lambda: knn.knn_adjacency_plain(x, k, bf16), 3)
-        nbytes = b * n * 3 * 4 + b * n * n + b * n * 3 * 2
-        ops = 8 * b * n * n  # 3 sub, 3 mul, 2 add per pair
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        return ms, plain, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    # -- 10. serving on the capacity routes, launch counts zeroed ----------
+    with Phase("serve capacity"):
+        zero_counts()
+        for npts, sub_c, batch, route in ((32768, sub32k, 2, "packed"),
+                                          (65536, sub64k, 1, "gather")):
+            assert adjacency_route(cfg, npts) == route
+            ix = PlaceIndex(embed, cfg.output_dim, embed_batch=batch, num_points=npts)
+            ix.warmup()
+            ix.add(sub_c, metadata=[f"submap_{i}" for i in range(len(sub_c))])
+            for s in range(0, len(sub_c), batch):  # every submap at rank 0
+                ids, dists = ix.query(sub_c[s:s + batch], k=5)
+                np.testing.assert_array_equal(ids[:, 0], np.arange(s, s + batch))
+                assert np.isfinite(dists).all()
+            log(f"  N={npts} ({route}): {len(sub_c)} submaps self-retrieved at rank 0, "
+                f"embed_batch {batch}")
+            del ix
+        cap_counts = read_counts()
+        assert cap_counts["K3"] >= 1 and cap_counts["K2"] >= 1, cap_counts
+        assert cap_counts["K4"] == 3 * cap_counts["K3"], cap_counts
+        torch.cuda.empty_cache()
+    log(f"phase serve capacity: launches {cap_counts}")
 
-    ms32, plain32, bound32, by32 = k1_numbers(x32)
-    ms8, plain8, bound8, by8 = k1_numbers(x8)
-    with torch.inference_mode():
-        pts32 = torch.tensor(sub[:32], device=dev)
-        embed_ms = cuda_ms(lambda: embed(pts32), 5)
-    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=32, num_points=n)
-    ix.add(sub)
-    ix.query(sub[:1], k=5)
-    q_ms = []
-    for i in range(10):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ix.query(sub[i:i + 1], k=5)  # returns host arrays: includes the sync
-        q_ms.append((time.perf_counter() - t) * 1e3)
+    # -- 11. timings, at the shapes the serving paths give each kernel -----
+    with Phase("timings"):
+        kernels = []
 
-    log(json.dumps({"kernels": [{
-        "name": "knn_adj", "route": "cuda", "source": "epcnet_torch/csrc/knn_adj.cu",
-        "replaces": "epcnet_tpu/ops/knn.py:68", "launches": launches,
-        "max_abs_err": err, "ms": ms32, "plain_ms": plain32,
-        "bound_ms": bound32, "bound_by": by32, "library_ms": None,
-        "shape": [32, n, 3], "k": k,
-    }]}))
-    log(json.dumps({"k1_b8": {"ms": ms8, "plain_ms": plain8, "bound_ms": bound8,
-                              "bound_by": by8, "shape": [8, n, 3], "k": k}}))
+        def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
+                  shape, **extra):
+            b_ms, by = bound(nbytes, ops)
+            kernels.append({
+                "name": name, "route": "cuda", "source": f"epcnet_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err_,
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+                "library_ms": None, "shape": shape, "k": k, **extra})
+
+        def xyz_bytes(x):
+            return x.numel() * 4
+
+        # K1 / K1': the dense route at the serving batch, B=32, N=4096
+        ms32 = cuda_ms(lambda: knn.knn_adjacency_cuda(x32, k, bf16), 20)
+        plain32 = cuda_ms(lambda: knn.knn_adjacency_plain(x32, k, bf16), 3)
+        entry("knn_adj", "knn_adj.cu", "epcnet_tpu/ops/knn.py:68", dense_counts["K1"],
+              err, ms32, plain32, xyz_bytes(x32) + 32 * n * n + 32 * n * 3 * 2,
+              8 * 32 * n * n, [32, n, 3])
+        ms_np = cuda_ms(lambda: knn.knn_adjacency_cuda(x32, k, bf16, with_proxy=False), 20)
+        plain_np = cuda_ms(lambda: knn.knn_adjacency_plain(x32, k, bf16, with_proxy=False), 3)
+        entry("knn_adj (no proxy)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:247",
+              dense_counts["K1'"] + cap_counts["K1'"], 0.0, ms_np, plain_np,
+              xyz_bytes(x32) + 32 * n * n, 8 * 32 * n * n, [32, n, 3])
+        ms8 = cuda_ms(lambda: knn.knn_adjacency_cuda(x8, k, bf16), 20)
+        plain8 = cuda_ms(lambda: knn.knn_adjacency_plain(x8, k, bf16), 3)
+        b8 = bound(xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 2, 8 * 8 * n * n)
+
+        # K2: the gather route's shape, B=1, N=65536, ids alone
+        x64 = torch.tensor(sub64k[:1], device=dev)
+        n64 = 65536
+        ms_k2 = cuda_ms(lambda: knn.knn_cuda(x64, k), 10)
+        plain_k2 = cuda_ms(lambda: knn.knn_plain(x64, k), 1)
+        two_k2 = cuda_ms(lambda: torch.topk(torch.cdist(x64, x64), k, largest=False), 3)
+        entry("knn_ids", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151", cap_counts["K2"], 0.0,
+              ms_k2, plain_k2, xyz_bytes(x64) + n64 * k * 4, 8 * n64 * n64, [1, n64, 3],
+              two_call_ms=two_k2, two_call="torch.cdist + torch.topk(largest=False); "
+              "sqrt distances, ties in no promised order")
+        x131 = cloud(1, 131072)
+        ms_k2_131 = cuda_ms(lambda: knn.knn_cuda(x131, k), 3)
+        b131 = bound(xyz_bytes(x131) + 131072 * k * 4, 8 * 131072 ** 2)
+        del x131
+        torch.cuda.empty_cache()
+
+        # K3: the packed route's shape, B=2, N=32768
+        n32 = 32768
+        ms_k3 = cuda_ms(lambda: knn.knn_packed_cuda(x_pack, k, bf16), 10)
+        plain_k3 = cuda_ms(lambda: knn.knn_adjacency_plain(x_pack, k, bf16, fmt="packed"), 1)
+        torch.cuda.empty_cache()
+        entry("knn_adj (packed)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:119",
+              cap_counts["K3"], err_k3, ms_k3, plain_k3,
+              xyz_bytes(x_pack) + 2 * n32 * n32 // 8 + 2 * n32 * 3 * 2,
+              8 * 2 * n32 * n32, [2, n32, 3])
+
+        # K4: layers 1-3 of the packed route, B=2, N=32768, C=64, bf16
+        f_relu = torch.relu(f64)  # a layer's input is a ReLU output
+        ms_k4 = cuda_ms(lambda: adjacency.packed_neighbor_mean_cuda(f_relu, planes, k), 20)
+        plain_k4 = cuda_ms(lambda: adjacency.packed_neighbor_mean_plain(f_relu, planes, k), 3)
+        set_bits = sum(int(((planes >> j) & 1).sum()) for j in range(32))
+        mask = adjacency.unpack_indicator(planes, bf16)
+        dense_k4 = cuda_ms(lambda: torch.bmm(mask, f_relu, out_dtype=torch.float32), 10)
+        del mask
+        torch.cuda.empty_cache()
+        entry("packed_mean", "packed_mean.cu", "epcnet_tpu/ops/adjacency.py:129",
+              cap_counts["K4"], err_k4, ms_k4, plain_k4,
+              planes.numel() * 4 + 2 * f_relu.numel() * 2, set_bits * 64, [2, n32, 64],
+              dense_product_ms=dense_k4, dense_product="torch.bmm of the unpacked bf16 "
+              "mask with F, fp32 sum (the dense route's layer product; unpack not timed)")
+
+        # the routes: one embed batch each, by CUDA events (mean of 3)
+        route_ms = []
+        for npts, b, fmts in ((16384, 2, ("dense", "packed", "gather")),
+                              (32768, 2, ("dense", "packed", "gather")),
+                              (65536, 1, ("gather",)), (131072, 1, ("gather",))):
+            xr = torch.tensor(submaps(np.random.default_rng(npts + 1), b, npts), device=dev)
+            for fmt in fmts:
+                route_ms.append({"n": npts, "b": b, "route": fmt,
+                                 "auto": adjacency_route(cfg, npts) == fmt,
+                                 "embed_ms": cuda_ms(lambda: routes[fmt](xr), 3)})
+            del xr
+            torch.cuda.empty_cache()
+
+        with torch.inference_mode():
+            pts32 = torch.tensor(sub[:32], device=dev)
+            embed_ms = cuda_ms(lambda: embed(pts32), 5)
+        ix = PlaceIndex(embed, cfg.output_dim, embed_batch=32, num_points=n)
+        ix.add(sub)
+        ix.query(sub[:1], k=5)
+        q_ms = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ix.query(sub[i:i + 1], k=5)  # returns host arrays: includes the sync
+            q_ms.append((time.perf_counter() - t) * 1e3)
+
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"k1_b8": {"ms": ms8, "plain_ms": plain8, "bound_ms": b8[0],
+                              "bound_by": b8[1], "shape": [8, n, 3], "k": k}}))
+    log(json.dumps({"k2_n131072": {"ms": ms_k2_131, "bound_ms": b131[0],
+                                   "bound_by": b131[1], "shape": [1, 131072, 3], "k": k}}))
+    log(json.dumps({"routes": route_ms}))
     log(json.dumps({"serve": {"embed_batch32_ms": embed_ms,
                               "query1_ms_median": sorted(q_ms)[len(q_ms) // 2],
                               "query1_ms_min": min(q_ms), "query1_ms": q_ms,

@@ -1,14 +1,22 @@
-"""EPC-Net and EPC-Net-L on the dense adjacency route (twin of
-``epcnet_tpu/models/epcnet.py``).
+"""EPC-Net and EPC-Net-L in eval mode (twin of ``epcnet_tpu/models/epcnet.py``).
 
-[B, N, 3] submap -> kNN indicator + layer-0 proxy (K1, computed ONCE on xyz)
--> ProxyConv stack -> multi-scale concat -> per-point lift -> G-VLAD ->
-[B, output_dim] L2-normalised fp32 descriptor.
+[B, N, 3] submap -> kNN graph (computed ONCE on xyz) -> ProxyConv stack ->
+multi-scale concat -> per-point lift -> G-VLAD -> [B, output_dim]
+L2-normalised fp32 descriptor.
 
-``adjacency_format`` keeps the JAX meaning and validation. Only the dense
-route is ported: where the JAX model would take the packed or gather route
-(``auto`` past N=16384, or asked for), this one raises. ``use_pallas`` has
-no effect here: a CPU tensor takes the plain twin, a CUDA tensor the kernel.
+The kNN graph takes one of three routes, chosen as the JAX model chooses
+(``adjacency_route``; ``adjacency_format`` keeps the JAX meaning):
+
+- dense (``auto`` up to N=16384): K1 gives the int8 indicator and the
+  layer-0 proxy; layers 1.. take ``A @ F`` on the card's matrix units;
+- packed (``auto`` past N=16384 where the bit-plane layout accepts N): K3
+  gives the indicator as bit planes and the layer-0 proxy; layers 1.. take
+  K4 (``packed_neighbor_mean``);
+- gather (``auto`` past N=32768): K2 gives the id lists; every layer,
+  layer 0 included, takes ``gather_neighbor_mean``.
+
+``use_pallas`` has no effect here: a CPU tensor takes the plain twins, a
+CUDA tensor the kernels.
 """
 
 from __future__ import annotations
@@ -21,15 +29,14 @@ from torch import nn
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.models.layers import ProxyConv, SharedMLP
 from epcnet_torch.models.vlad_head import GVLADHead, compute_dtype
-from epcnet_torch.ops.knn import knn_adjacency
+from epcnet_torch.ops.adjacency import gather_neighbor_mean, packed_neighbor_mean
+from epcnet_torch.ops.knn import knn, knn_adjacency
 
 # The JAX model's "auto" cutovers (models/epcnet.py there): packed past this
 # N when the bit-plane layout accepts N, gather past _GATHER_AUTO_N. Kept so
 # that this port runs dense exactly where the JAX model does.
 _PACKED_AUTO_N = 16384
 _GATHER_AUTO_N = 32768
-_CAPACITY_ROUTES = ("the packed and gather adjacency routes are not ported "
-                    "yet (ROADMAP item 6, Capacity routes)")
 
 
 def _packed_layout_supported(n: int, proxy_dtype: str, tile_q: int = 256) -> bool:
@@ -79,34 +86,43 @@ class EPCNet(nn.Module):
     def forward(self, points: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             raise NotImplementedError("training is not ported yet (ROADMAP item 4)")
-        n = points.shape[-2]
-        if adjacency_route(self.cfg, n) != "dense":
-            raise NotImplementedError(
-                f"N={n}, adjacency_format={self.cfg.adjacency_format!r}: "
-                + _CAPACITY_ROUTES
-            )
         x = points.float()
-        adj, proxy0 = knn_adjacency(x, self.cfg.knn_k, compute_dtype(self.cfg),
-                                    with_proxy=True)
-        return self.forward_graph(x, adj, proxy0)
+        route = adjacency_route(self.cfg, x.shape[-2])
+        graph, proxy0 = self.build_graph(x, route)
+        return self.forward_graph(x, graph, proxy0, route)
 
-    def forward_graph(self, x: torch.Tensor, adj: torch.Tensor,
-                      proxy0: torch.Tensor) -> torch.Tensor:
-        """The network after the kNN graph: ``adj`` is the int8 indicator
-        [B, N, N], ``proxy0`` the layer-0 proxy [B, N, 3]. Split from
-        ``forward`` so a caller can feed a graph from another source (the
-        plain twin on the card, to hold the kernel path against it)."""
+    def build_graph(self, x: torch.Tensor, route: str):
+        """The kNN graph of ``route`` and the layer-0 proxy: (int8 indicator
+        [B, N, N], proxy0) for dense, (int32 bit planes [B, N, N/32], proxy0)
+        for packed, (int32 ids [B, N, k], None) for gather."""
+        k = self.cfg.knn_k
+        if route == "gather":
+            return knn(x, k), None
+        return knn_adjacency(x, k, compute_dtype(self.cfg), with_proxy=True, fmt=route)
+
+    def forward_graph(self, x: torch.Tensor, graph: torch.Tensor,
+                      proxy0: torch.Tensor | None = None,
+                      route: str = "dense") -> torch.Tensor:
+        """The network after the kNN graph, as ``build_graph`` gives it for
+        ``route``. Split from ``forward`` so a caller can feed a graph from
+        another source (the plain twins on the card, to hold the kernel path
+        against them)."""
+        if route not in ("dense", "packed", "gather"):
+            raise ValueError(f"route must be dense|packed|gather, got {route!r}")
         dtype = compute_dtype(self.cfg)
         f = x.float().to(dtype)
         a = None
         scales = []
         for i in range(len(self.cfg.proxyconv_channels)):
-            if i == 0:
+            proxy = None
+            if route == "gather":
+                proxy = gather_neighbor_mean(f, graph)
+            elif i == 0:
                 proxy = proxy0
-            else:
-                proxy = None
-                if a is None:
-                    a = adj.to(dtype)  # once per forward, shared by layers 1..
+            elif route == "packed":
+                proxy = packed_neighbor_mean(f, graph, self.cfg.knn_k, dtype)
+            elif a is None:
+                a = graph.to(dtype)  # once per forward, shared by layers 1..
             f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy)
             scales.append(f)
         f_lift = self.lift(torch.cat(scales, dim=-1))  # [B, N, feature_dim]

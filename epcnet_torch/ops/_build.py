@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own:
        -shared -Xcompiler -fPIC -o csrc/build/lib<name>-<hash>.so csrc/<name>.cu
 
 at first use, from the sources in the checkout only. The library name holds
-a hash of the source, so an edited kernel is never served from a stale
-build; the output directory is listed in ``.gitignore``. ``-fmad=false``
+a hash of the source and of the shared headers (``csrc/*.cuh``), so an
+edited kernel is never served from a stale build; the output directory is
+listed in ``.gitignore``. ``-fmad=false``
 keeps every product and sum separately rounded, which is what makes the kNN
 distances bit-equal to the plain PyTorch version (the kernels also spell it
 out with ``__fmul_rn``/``__fadd_rn``).
@@ -33,6 +34,10 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every kernel source of the port, csrc/<name>.cu
+SOURCES = ("knn_adj", "knn_ids", "packed_mean")
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -49,8 +54,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | tuple[str, ...]) -> dict[str, str]:
@@ -88,3 +95,15 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(str(_target(name)[1]))
         return _libs[name]
+
+
+def launch(name: str, symbol: str, signature: str, *args) -> None:
+    """Call the C entry ``symbol`` of ``csrc/<name>.cu`` with ``args`` typed
+    by ``signature`` (one letter each: p pointer or None, i int, f float).
+    The entry returns the launch's cudaError_t; anything but 0 raises."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [_CTYPES[c] for c in signature]
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol} (csrc/{name}.cu) failed: cudaError {err}")

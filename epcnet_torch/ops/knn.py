@@ -1,124 +1,209 @@
-"""k-nearest-neighbour graph of a point cloud (twin of ``epcnet_tpu/ops/knn.py``
-on its dense, adjacency-only route).
+"""k-nearest-neighbour graph of a point cloud (twin of ``epcnet_tpu/ops/knn.py``).
 
-``knn_adjacency`` builds, once per forward, the 0/1 indicator of each point's
-k nearest points (self included) and the layer-0 proxy point (the mean of
-those k points' coordinates). On a CUDA tensor it launches K1
-(``csrc/knn_adj.cu``); on a CPU tensor it runs the plain version beside it.
-There is no fallback from one to the other.
+- ``knn`` gives each point's k nearest ids (and distances): K2
+  (``csrc/knn_ids.cu``) on a CUDA tensor, ``knn_plain`` on a CPU tensor.
+  The model's gather route uses it.
+- ``knn_adjacency`` builds, once per forward, the 0/1 indicator of each
+  point's k nearest points (self included) and the layer-0 proxy point (the
+  mean of those k points' coordinates), as an int8 [N, N] matrix
+  (``fmt="dense"``: K1) or as int32 bit planes [N, N/32] (``fmt="packed"``:
+  K3); both kernels are in ``csrc/knn_adj.cu``. A CPU tensor takes the plain
+  version beside each kernel.
 
-Order everywhere: ascending fp32 distance, then ascending index — the order
-of ``jax.lax.top_k(-d)``.
+There is no fallback from a kernel to its plain version. Order everywhere:
+ascending fp32 distance, then ascending index — the order of
+``jax.lax.top_k(-d)``.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from epcnet_torch.ops import _build
-from epcnet_torch.ops.adjacency import count_adjacency, neighbor_mean
+from epcnet_torch.ops.adjacency import count_adjacency, neighbor_mean, pack_indicator
 from epcnet_torch.ops.pairwise import pairwise_sqdist
 
 
-def knn_plain(x: torch.Tensor, k: int, return_dists: bool = False):
-    """Plain kNN, the twin of ``knn_jnp``: the full pairwise matrix, then a
-    stable sort (``torch.topk`` does not promise the lowest index first on
-    ties) cut to the first k.
+def _check_k(k: int, n: int) -> None:
+    if not 1 <= k <= n:
+        raise ValueError(
+            f"k={k} must be in [1, n={n}]: a neighbour list cannot be longer "
+            "than the cloud"
+        )
+
+
+def knn_plain(x: torch.Tensor, k: int, return_dists: bool = False,
+              block_rows: int = 1024):
+    """Plain kNN, the twin of ``knn_jnp``: for each block of ``block_rows``
+    query rows, the [block, N] distances and a stable sort (``torch.topk``
+    does not promise the lowest index first on ties) cut to the first k. No
+    [N, N] matrix is held at once.
 
     Args:
       x: [..., N, D] coordinates. k: neighbours per point, self included.
 
     Returns:
-      idx [..., N, k] int64 (and fp32 distances if asked), nearest first.
+      idx [..., N, k] int32 (and fp32 distances if asked), nearest first.
     """
     n = x.shape[-2]
-    if k > n:
-        raise ValueError(f"k={k} > n={n}")
-    d = pairwise_sqdist(x)
-    dist, idx = torch.sort(d, dim=-1, stable=True)
+    _check_k(k, n)
+    ids, dists = [], []
+    for r0 in range(0, n, block_rows):
+        d = pairwise_sqdist(x[..., r0:r0 + block_rows, :], x)
+        dist, idx = torch.sort(d, dim=-1, stable=True)
+        ids.append(idx[..., :k].to(torch.int32))
+        dists.append(dist[..., :k])
+        del d, dist, idx
+    idx = torch.cat(ids, dim=-2)
+    return (idx, torch.cat(dists, dim=-2)) if return_dists else idx
+
+
+def _cloud_batch(x: torch.Tensor, k: int, name: str) -> torch.Tensor:
+    """Checks shared by the kNN kernels; returns x as fp32 contiguous."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} takes a CUDA tensor, got {x.device}")
+    if x.dim() != 3 or x.shape[-1] != 3:
+        raise ValueError(f"{name} takes [B, N, 3] coordinates, got {tuple(x.shape)}")
+    _check_k(k, x.shape[1])
+    return x.float().contiguous()
+
+
+def knn_cuda(x: torch.Tensor, k: int, return_dists: bool = False,
+             with_adjacency: bool = False):
+    """Launch K2 on ``torch.cuda.current_stream()``. x: [B, N, 3] on the
+    card. Returns ids [B, N, k] int32, then the fp32 distances if
+    ``return_dists``, then the int8 indicator [B, N, N] if
+    ``with_adjacency`` (a tuple when more than the ids are asked for). Each
+    launch adds one to ``knn_cuda.launches``."""
+    x = _cloud_batch(x, k, "K2")
+    b, n, _ = x.shape
+    ids = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
+    dists = torch.empty((b, n, k), dtype=torch.float32, device=x.device) if return_dists else None
+    adj = torch.empty((b, n, n), dtype=torch.int8, device=x.device) if with_adjacency else None
+    with torch.cuda.device(x.device):
+        _build.launch("knn_ids", "knn_ids_launch", "piiipppp", x.data_ptr(), b, n, k,
+                      ids.data_ptr(), dists.data_ptr() if return_dists else None,
+                      adj.data_ptr() if with_adjacency else None,
+                      torch.cuda.current_stream().cuda_stream)
+    knn_cuda.launches += 1
+    out = (ids,) + ((dists,) if return_dists else ()) + ((adj,) if with_adjacency else ())
+    return out if len(out) > 1 else ids
+
+
+knn_cuda.launches = 0
+
+
+def knn(x: torch.Tensor, k: int, return_dists: bool = False):
+    """Each point's k nearest ids, nearest first (the JAX ``knn``).
+
+    Args:
+      x: [..., N, D] coordinates (D = 3 on the card). k: 1 <= k <= N.
+
+    Returns:
+      idx [..., N, k] int32, and fp32 distances [..., N, k] with
+      ``return_dists``. A CUDA tensor goes through K2, a CPU tensor through
+      ``knn_plain``.
+    """
+    if x.device.type == "cpu":
+        return knn_plain(x, k, return_dists)
+    *lead, n, d = x.shape
+    out = knn_cuda(x.reshape(-1, n, d), k, return_dists)
     if return_dists:
-        return idx[..., :k], dist[..., :k]
-    return idx[..., :k]
+        return tuple(t.reshape(*lead, n, k) for t in out)
+    return out.reshape(*lead, n, k)
 
 
 def knn_adjacency_plain(x: torch.Tensor, k: int, dtype=torch.bfloat16,
-                        with_proxy: bool = True):
-    """K1's plain version: ``knn_plain``, then ``count_adjacency``, then the
-    proxy as ``neighbor_mean(x.to(dtype), indicator, dtype, 1/k)`` — the
-    arithmetic of the JAX ``knn_adjacency(impl="jnp", with_proxy=True)``.
-    Returns (indicator int8 [..., N, N], proxy [..., N, D] in ``dtype`` or
-    None)."""
+                        with_proxy: bool = True, fmt: str = "dense"):
+    """K1's and K3's plain version: ``knn_plain``, then ``count_adjacency``,
+    then the proxy as ``neighbor_mean(x.to(dtype), indicator, dtype, 1/k)``
+    and, for ``fmt="packed"``, ``pack_indicator`` — the arithmetic of the JAX
+    ``knn_adjacency(impl="jnp", with_proxy=True, fmt=...)``. Returns
+    (adjacency, proxy [..., N, D] in ``dtype`` or None)."""
     ind = count_adjacency(knn_plain(x, k), x.shape[-2], torch.int8)
-    if not with_proxy:
-        return ind, None
-    proxy = neighbor_mean(x.to(dtype), ind, compute_dtype=dtype,
-                          adjacency_scale=1.0 / k)
-    return ind, proxy
+    proxy = None
+    if with_proxy:
+        proxy = neighbor_mean(x.to(dtype), ind, compute_dtype=dtype,
+                              adjacency_scale=1.0 / k)
+    return (pack_indicator(ind) if fmt == "packed" else ind), proxy
+
+
+def _launch_adj(x, k, dtype, with_proxy, pack, name):
+    """One launch of ``csrc/knn_adj.cu``: K1 (pack=False) or K3."""
+    x = _cloud_batch(x, k, name)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}'s proxy is bf16 or fp32, got {dtype}")
+    b, n, _ = x.shape
+    if pack and n % 32:
+        raise ValueError(f"{name}: columns {n} not divisible by 32")
+    shape, adt = ((b, n, n // 32), torch.int32) if pack else ((b, n, n), torch.int8)
+    adj = torch.empty(shape, dtype=adt, device=x.device)
+    proxy = torch.empty((b, n, 3), dtype=dtype, device=x.device) if with_proxy else None
+    with torch.cuda.device(x.device):
+        _build.launch("knn_adj", "knn_adj_launch", "piiippifip", x.data_ptr(), b, n, k,
+                      adj.data_ptr(), proxy.data_ptr() if with_proxy else None,
+                      int(dtype == torch.bfloat16), 1.0 / k, int(pack),
+                      torch.cuda.current_stream().cuda_stream)
+    return adj, proxy
 
 
 def knn_adjacency_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
                        with_proxy: bool = True):
-    """Launch K1 on ``torch.cuda.current_stream()``. x: [B, N, 3] on the
+    """Launch K1 on ``torch.cuda.current_stream()``: the int8 indicator
+    [B, N, N] and the proxy [B, N, 3] (K1′ without it). x: [B, N, 3] on the
     card. Outputs are allocated here; the kernel allocates nothing and does
-    not synchronise. Each launch adds one to ``knn_adjacency_cuda.launches``.
-    """
-    if x.device.type != "cuda":
-        raise ValueError(f"K1 takes a CUDA tensor, got {x.device}")
-    if x.dim() != 3 or x.shape[-1] != 3:
-        raise ValueError(f"K1 takes [B, N, 3] coordinates, got {tuple(x.shape)}")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"K1's proxy is bf16 or fp32, got {dtype}")
-    b, n, _ = x.shape
-    if not 1 <= k <= n:
-        raise ValueError(f"k={k} must be in [1, n={n}]")
-    x = x.float().contiguous()
-    adj = torch.empty((b, n, n), dtype=torch.int8, device=x.device)
-    proxy = torch.empty((b, n, 3), dtype=dtype, device=x.device) if with_proxy else None
-    lib = _build.load("knn_adj")
-    fn = lib.knn_adj_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), b, n, k, adj.data_ptr(),
-                 proxy.data_ptr() if with_proxy else None,
-                 int(dtype == torch.bfloat16), 1.0 / k,
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K1 (csrc/knn_adj.cu) launch failed: cudaError {err}")
-    knn_adjacency_cuda.launches += 1
-    return adj, proxy
+    not synchronise. Each launch adds one to ``knn_adjacency_cuda.launches``
+    (with the proxy) or ``knn_adjacency_cuda.launches_no_proxy``."""
+    out = _launch_adj(x, k, dtype, with_proxy, False, "K1")
+    if with_proxy:
+        knn_adjacency_cuda.launches += 1
+    else:
+        knn_adjacency_cuda.launches_no_proxy += 1
+    return out
 
 
 knn_adjacency_cuda.launches = 0
+knn_adjacency_cuda.launches_no_proxy = 0
+
+
+def knn_packed_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
+                    with_proxy: bool = True):
+    """Launch K3 on ``torch.cuda.current_stream()``: the indicator as int32
+    bit planes [B, N, N/32] (N % 32 == 0) and the proxy [B, N, 3], equal to
+    K1's. Each launch adds one to ``knn_packed_cuda.launches``."""
+    out = _launch_adj(x, k, dtype, with_proxy, True, "K3")
+    knn_packed_cuda.launches += 1
+    return out
+
+
+knn_packed_cuda.launches = 0
 
 
 def knn_adjacency(x: torch.Tensor, k: int, dtype=torch.bfloat16,
-                  with_proxy: bool = True):
+                  with_proxy: bool = True, fmt: str = "dense"):
     """0/1 indicator adjacency and layer-0 proxy of each cloud — the
     counterpart of the JAX ``knn_adjacency(..., with_idx=False,
-    with_proxy=True)`` on the dense route.
+    with_proxy=True, fmt=fmt)``.
 
     Args:
       x: [..., N, 3] coordinates (fp32).
       k: neighbours per point, 1 <= k <= N (self included).
       dtype: compute dtype of the proxy (bf16 or fp32).
+      fmt: "dense" (int8 [..., N, N]) or "packed" (int32 bit planes
+        [..., N, N/32]; N % 32 == 0, else ``ValueError`` as the JAX
+        ``pack_indicator`` raises).
 
     Returns:
-      (indicator int8 [..., N, N], proxy [..., N, 3] in ``dtype``, or None
-      with ``with_proxy=False``). A CUDA tensor goes through K1, a CPU tensor
-      through ``knn_adjacency_plain``.
+      (adjacency, proxy [..., N, 3] in ``dtype``, or None with
+      ``with_proxy=False``). A CUDA tensor goes through K1 (dense) or K3
+      (packed), a CPU tensor through ``knn_adjacency_plain``.
     """
+    if fmt not in ("dense", "packed"):
+        raise ValueError(f"fmt must be dense|packed, got {fmt!r}")
     *lead, n, d = x.shape
-    if k > n:
-        raise ValueError(
-            f"k={k} > n={n}: a neighbour list cannot be longer than the cloud"
-        )
     if x.device.type == "cpu":
-        return knn_adjacency_plain(x, k, dtype, with_proxy)
-    ind, proxy = knn_adjacency_cuda(x.reshape(-1, n, d), k, dtype, with_proxy)
-    ind = ind.reshape(*lead, n, n)
-    return ind, (proxy.reshape(*lead, n, d) if with_proxy else None)
+        return knn_adjacency_plain(x, k, dtype, with_proxy, fmt)
+    launch = knn_packed_cuda if fmt == "packed" else knn_adjacency_cuda
+    adj, proxy = launch(x.reshape(-1, n, d), k, dtype, with_proxy)
+    adj = adj.reshape(*lead, n, adj.shape[-1])
+    return adj, (proxy.reshape(*lead, n, d) if with_proxy else None)

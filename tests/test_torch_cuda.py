@@ -4,6 +4,13 @@ These tests need an NVIDIA card and skip without one. This file imports no
 JAX, so it runs where JAX is not installed:
 
   python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: ids, distances, indicators and bit planes exactly equal; the
+proxy within 1 bf16 ulp (an fp32 sum in another order), or 1e-6 relative in
+fp32. K4 sums the set rows of F in fp32 where its twin runs cuBLAS, so the
+two differ by fp32 rounding of the sum, at most about 1e-6 of the mean of
+|F| over the row's set bits: bf16 results within 1 bf16 ulp plus that, fp32
+results within that.
 """
 
 import numpy as np
@@ -11,7 +18,7 @@ import pytest
 import torch
 
 from epcnet_torch.configs import ModelConfig
-from epcnet_torch.ops import knn
+from epcnet_torch.ops import adjacency, knn
 from epcnet_torch.train.step import build_embed_fn
 
 pytestmark = pytest.mark.cuda
@@ -32,6 +39,18 @@ def _cloud(seed, b, n, dev, grid=None):
     return torch.tensor(x, device=dev)
 
 
+def _bf16_spacing(want):
+    return BF16_ULP * torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))))
+
+
+def _assert_proxy_close(got, want, dt):
+    err = (got.float() - want.float()).abs()
+    if dt == torch.bfloat16:
+        assert bool((err <= _bf16_spacing(want.float())).all())
+    else:
+        assert bool((err <= 1e-6 * want.float().abs() + 1e-7).all())
+
+
 @pytest.mark.parametrize("b,n,k,dtype,grid", [
     (2, 4096, 20, "bfloat16", None),
     (2, 4096, 20, "bfloat16", 6),
@@ -48,13 +67,7 @@ def test_k1_matches_plain(cuda, b, n, k, dtype, grid):
     adj_p, proxy_p = knn.knn_adjacency_plain(x, k, dt)
     assert adj.dtype == torch.int8 and proxy.dtype == dt
     assert torch.equal(adj, adj_p)
-    want = proxy_p.float()
-    err = (proxy.float() - want).abs()
-    if dt == torch.bfloat16:
-        spacing = BF16_ULP * torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))))
-        assert bool((err <= spacing).all())
-    else:
-        assert bool((err <= 1e-6 * want.abs() + 1e-7).all())
+    _assert_proxy_close(proxy, proxy_p, dt)
 
 
 def test_k1_rejects_bad_input(cuda):
@@ -62,6 +75,103 @@ def test_k1_rejects_bad_input(cuda):
         knn.knn_adjacency_cuda(_cloud(0, 1, 16, cuda), 17)
     with pytest.raises(ValueError, match=r"\[B, N, 3\]"):
         knn.knn_adjacency_cuda(torch.zeros(1, 16, 4, device=cuda), 4)
+
+
+@pytest.mark.parametrize("b,n,k,grid", [
+    (2, 4096, 20, None),
+    (2, 4096, 20, 6),  # ties
+    (2, 1001, 7, 4),  # odd N, ties
+    (1, 33, 33, None),  # k = N
+    (1, 1, 1, None),
+    (1, 20000, 20, None),  # xyz read from global memory
+    (1, 40000, 20, None),  # a gather-route size
+])
+def test_k2_matches_plain(cuda, b, n, k, grid):
+    x = _cloud(n + 2 * k, b, n, cuda, grid)
+    before = knn.knn_cuda.launches
+    ids, dists = knn.knn(x, k, return_dists=True)
+    assert knn.knn_cuda.launches == before + 1
+    ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
+    assert ids.dtype == torch.int32 and dists.dtype == torch.float32
+    assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p)
+    assert torch.equal(knn.knn_cuda(x, k), ids)  # ids alone, no distances
+
+
+def test_k2_indicator_matches_k1(cuda):
+    x = _cloud(3, 2, 4096, cuda, grid=8)
+    ids, adj = knn.knn_cuda(x, 20, with_adjacency=True)
+    assert torch.equal(ids, knn.knn_plain(x, 20))
+    assert torch.equal(adj, knn.knn_adjacency_plain(x, 20, with_proxy=False)[0])
+    ids2, dists, adj2 = knn.knn_cuda(x, 20, return_dists=True, with_adjacency=True)
+    assert torch.equal(ids2, ids) and torch.equal(adj2, adj) and dists.shape == ids.shape
+
+
+@pytest.mark.parametrize("b,n,k,dtype,grid", [
+    (2, 4096, 20, "bfloat16", None),
+    (2, 4096, 20, "bfloat16", 6),  # ties
+    (2, 1024, 7, "float32", 4),
+    (1, 32, 32, "bfloat16", None),  # k = N, one word per row
+    (1, 20480, 20, "bfloat16", None),  # xyz read from global memory
+])
+def test_k3_matches_plain(cuda, b, n, k, dtype, grid):
+    x = _cloud(n + 3 * k, b, n, cuda, grid)
+    dt = getattr(torch, dtype)
+    before = knn.knn_packed_cuda.launches
+    planes, proxy = knn.knn_adjacency(x, k, dt, fmt="packed")
+    assert knn.knn_packed_cuda.launches == before + 1
+    planes_p, proxy_p = knn.knn_adjacency_plain(x, k, dt, fmt="packed")
+    assert planes.dtype == torch.int32 and planes.shape == (b, n, n // 32)
+    assert torch.equal(planes, planes_p)
+    assert bool((planes < 0).any())  # plane 31, the sign bit, is hit
+    _assert_proxy_close(proxy, proxy_p, dt)
+    # the same kernel core as K1: its proxy is K1's, bit for bit
+    assert torch.equal(proxy, knn.knn_adjacency_cuda(x, k, dt)[1])
+    with pytest.raises(ValueError, match="divisible by 32"):
+        knn.knn_adjacency(x[:, :n - 1], min(k, n - 1), dt, fmt="packed")
+
+
+def _k4_check(f, planes, k, dt):
+    got = adjacency.packed_neighbor_mean(f, planes, k, dt)
+    want = adjacency.packed_neighbor_mean_plain(f, planes, k, dt).float()
+    scale = adjacency.packed_neighbor_mean_plain(f.abs().float(), planes, k,
+                                                 torch.float32)
+    assert got.dtype == f.dtype and got.shape == want.shape
+    err = (got.float() - want).abs()
+    tol = 1e-6 * scale + (_bf16_spacing(want) if f.dtype == torch.bfloat16 else 0)
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("b,n,c,density,fdtype,dtype", [
+    (2, 4096, 64, None, "bfloat16", "bfloat16"),  # K3's planes, k per row
+    (2, 4096, 64, 0.05, "bfloat16", "bfloat16"),  # popcount != k
+    (1, 2048, 48, 0.3, "float32", "float32"),
+    (1, 1024, 300, 0.05, "bfloat16", "bfloat16"),  # channels in two blocks
+    (2, 256, 16, 0.5, "bfloat16", "float32"),  # bf16 features, fp32 compute
+    (1, 96, 3, 0.1, "float32", "bfloat16"),  # W=3 words, fewer than a warp
+])
+def test_k4_matches_plain(cuda, b, n, c, density, fdtype, dtype):
+    rng = np.random.default_rng(n + c)
+    k = 20
+    if density is None:
+        planes, _ = knn.knn_adjacency(_cloud(n, b, n, cuda), k, fmt="packed")
+    else:
+        mask = torch.tensor(rng.uniform(size=(b, n, n)) < density, device=cuda)
+        mask[:, :, -1] = True  # a column of plane 31
+        planes = adjacency.pack_indicator(mask.to(torch.int8))
+    f = torch.tensor(rng.standard_normal((b, n, c)).astype(np.float32),
+                     device=cuda).to(getattr(torch, fdtype))
+    before = adjacency.packed_neighbor_mean_cuda.launches
+    _k4_check(f, planes, k, getattr(torch, dtype))
+    assert adjacency.packed_neighbor_mean_cuda.launches == before + 1
+
+
+def test_gather_mean_takes_int32_ids(cuda):
+    x = _cloud(9, 2, 3000, cuda)
+    ids = knn.knn(x, 20)
+    f = torch.randn(2, 3000, 64, device=cuda).to(torch.bfloat16)
+    got = adjacency.gather_neighbor_mean(f, ids)
+    want = adjacency.gather_neighbor_mean(f, ids.long())
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 def test_model_kernel_path_matches_plain_twin(cuda):
@@ -75,3 +185,25 @@ def test_model_kernel_path_matches_plain_twin(cuda):
             x, *knn.knn_adjacency_plain(x, cfg.knn_k, torch.bfloat16))
     assert d.shape == (4, 256) and bool(torch.isfinite(d).all())
     assert float((d - d_plain).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 1e-3), ("float32", 2e-5)])
+@pytest.mark.parametrize("route", ["packed", "gather"])
+def test_routes_match_dense(cuda, route, dtype, tol):
+    """N=2048: each capacity route against the dense route, same weights.
+    bf16: 1e-3, what a 1-ulp bf16 difference in a neighbour mean moves a
+    descriptor entry by at most; fp32: the JAX package's gather tolerance."""
+    cfg = ModelConfig(num_points=2048, proxyconv_channels=(16, 16, 16, 32),
+                      lift_channels=(64, 128), feature_dim=128, compute_dtype=dtype)
+    x = _cloud(11, 2, 2048, cuda)
+    dense = build_embed_fn(cfg.variant(adjacency_format="dense"), device=cuda)
+    other = build_embed_fn(cfg.variant(adjacency_format=route), device=cuda)
+    counter = knn.knn_packed_cuda if route == "packed" else knn.knn_cuda
+    before = counter.launches, adjacency.packed_neighbor_mean_cuda.launches
+    d_other = other(x)
+    assert counter.launches == before[0] + 1
+    assert adjacency.packed_neighbor_mean_cuda.launches == before[1] + (
+        3 if route == "packed" else 0)
+    d_dense = dense(x)
+    assert d_other.shape == (2, 256) and bool(torch.isfinite(d_other).all())
+    assert float((d_other - d_dense).abs().max()) <= tol

@@ -28,10 +28,11 @@ from epcnet_torch.models import get_model
 from epcnet_torch.models.epcnet import _packed_layout_supported, adjacency_route
 from epcnet_torch.models.layers import ProxyConv, SharedMLP
 from epcnet_torch.models.vlad_head import GVLADHead
-from epcnet_torch.weights import load_flat_variables
+from epcnet_torch.weights import init_flat_variables, load_flat_variables
 
 FP32_TOL = 1e-5
 BF16_TOL = 2e-4
+GATHER_FP32_TOL = 2e-5  # tests/test_models.py:207, gather against dense
 
 # tests/test_golden.py:35-42
 GOLDEN_KW = {
@@ -168,12 +169,98 @@ def test_adjacency_routes_follow_jax():
     assert adjacency_route(tc, 20000) == "dense"  # packed layout refuses 20000
     assert adjacency_route(tc, 40000) == "gather"
     assert adjacency_route(tc.variant(adjacency_format="dense"), 40000) == "dense"
-    for fmt in ("packed", "gather"):
+    x = torch.tensor(np.random.RandomState(26).uniform(-1, 1, (1, 128, 3)).astype(np.float32))
+    outs = {}
+    for fmt in ("dense", "packed", "gather"):  # both capacity routes run
         m = get_model(tc.variant(adjacency_format=fmt), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            m(torch.zeros(1, 128, 3))
+        load_flat_variables(m, init_flat_variables(tc, seed=1))
+        with torch.inference_mode():
+            outs[fmt] = m(x)
+    assert torch.equal(outs["packed"], outs["dense"])  # the same twins' sums
+    np.testing.assert_allclose(outs["gather"], outs["dense"], atol=BF16_TOL, rtol=0)
+    with pytest.raises(ValueError, match="divisible by 32"):
+        m = get_model(tc.variant(adjacency_format="packed"), device="cpu")
+        m(torch.zeros(1, 100, 3))
     with pytest.raises(ValueError, match="adjacency_format"):
         tcfg.ModelConfig(adjacency_format="pakced")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["packed", "gather"])
+def test_capacity_routes_match_jax(fmt, dtype):
+    """The packed and gather routes against the JAX model on the same route,
+    at the tiny_model_cfg shapes (tests/conftest.py:35)."""
+    x = np.random.RandomState(25).uniform(-1, 1, (2, 128, 3)).astype(np.float32)
+    got, want = _both("epcnet", 4, x, adjacency_format=fmt, compute_dtype=dtype)
+    assert got.shape == (2, 256) and np.isfinite(got).all()
+    tol = BF16_TOL if dtype == "bfloat16" else (FP32_TOL if fmt == "packed" else GATHER_FP32_TOL)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+def test_auto_switches_routes_spied(monkeypatch):
+    """``auto`` past the cutovers takes the packed, then the gather route,
+    with the dense route's descriptors (tests/test_models.py:149-181 and
+    :236-261): packed bit for bit through the plain twins, gather to 2e-5."""
+    import epcnet_torch.models.epcnet as mod
+
+    seen = []
+    real_adj, real_knn = mod.knn_adjacency, mod.knn
+    monkeypatch.setattr(mod, "knn_adjacency",
+                        lambda *a, **kw: seen.append(kw["fmt"]) or real_adj(*a, **kw))
+    monkeypatch.setattr(mod, "knn", lambda *a, **kw: seen.append("knn") or real_knn(*a, **kw))
+    _, tc = _cfgs("epcnet", compute_dtype="float32")
+    m = get_model(tc, device="cpu")
+    load_flat_variables(m, init_flat_variables(tc, seed=2))
+    x = torch.tensor(np.random.RandomState(27).randn(2, 128, 3).astype(np.float32))
+    with torch.inference_mode():
+        out_dense = m(x)
+        assert seen == ["dense"]
+        monkeypatch.setattr(mod, "_PACKED_AUTO_N", 127)
+        out_packed = m(x)
+        assert seen[-1] == "packed"
+        monkeypatch.setattr(mod, "_GATHER_AUTO_N", 127)
+        out_gather = m(x)
+        assert seen[-1] == "knn"
+    assert torch.equal(out_packed, out_dense)
+    np.testing.assert_allclose(out_gather, out_dense, atol=GATHER_FP32_TOL, rtol=0)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("fmt", ["auto", "dense", "packed", "gather"])
+def test_route_choice_matches_jax_model(fmt, monkeypatch):
+    """For each adjacency_format and N the port's forward builds the graph
+    the JAX model's __call__ builds. Both packages' cutovers are moved to
+    N=100 and N=200 so that every branch is met at small N; the spies stop
+    each forward at its graph."""
+    import epcnet_tpu.models.epcnet as jmod
+
+    import epcnet_torch.models.epcnet as tmod
+
+    seen = []
+
+    def stop(tag):
+        def spy(*a, **kw):
+            seen.append(kw.get("fmt", tag))
+            raise _Stop
+        return spy
+
+    for mod in (jmod, tmod):
+        monkeypatch.setattr(mod, "_PACKED_AUTO_N", 100)
+        monkeypatch.setattr(mod, "_GATHER_AUTO_N", 200)
+        monkeypatch.setattr(mod, "knn_adjacency", stop("dense"))
+        monkeypatch.setattr(mod, "knn", stop("gather"))
+    jc, tc = _cfgs("epcnet", adjacency_format=fmt)
+    jm, tm = j_get_model(jc), get_model(tc, device="cpu")
+    # 96: packed layout refused; 128: accepted; 192: refused; 256, 320 > 200
+    for n in (96, 128, 192, 256, 320):
+        with pytest.raises(_Stop):
+            jm.init(jax.random.PRNGKey(0), jnp.zeros((1, n, 3)), train=False)
+        with pytest.raises(_Stop):
+            tm(torch.zeros(1, n, 3))
+        assert seen[-1] == seen[-2] == adjacency_route(tc, n), (fmt, n, seen)
 
 
 def test_get_model_names():

@@ -180,3 +180,88 @@ def test_retrieval_int8_matches():
     jids, _ = jret.topk_neighbors_quantized(jnp.asarray(q), jqi, jsc, 5)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(ids[:, 0].numpy(), np.arange(20))
+
+
+def test_pack_unpack_indicator_match():
+    """[2, 96, 256] at 5% density with plane 31 (the int32 sign bit) hit:
+    the port's planes equal the JAX ones and unpack back to the indicator."""
+    rng = np.random.RandomState(11)
+    ind = (rng.rand(2, 96, 256) < 0.05).astype(np.int8)
+    ind[:, 3, 31 * 8 + 5] = 1  # column j*W + w with j = 31, W = 8
+    packed = tadj.pack_indicator(_t(ind))
+    want = np.asarray(jadj.pack_indicator(jnp.asarray(ind)))
+    assert packed.dtype == torch.int32 and packed.shape == (2, 96, 8)
+    np.testing.assert_array_equal(packed.numpy(), want)
+    assert bool((packed[:, 3, 5] < 0).all())
+    for dt, jdt in ((torch.int8, jnp.int8), (torch.float32, jnp.float32)):
+        back = tadj.unpack_indicator(packed, dt)
+        assert back.dtype == dt
+        np.testing.assert_array_equal(back.numpy(), ind.astype(back.numpy().dtype))
+        np.testing.assert_array_equal(
+            back.numpy(), np.asarray(jadj.unpack_indicator(jnp.asarray(want), jdt)))
+    with pytest.raises(ValueError, match="divisible by 32"):
+        tadj.pack_indicator(torch.zeros(2, 3, 100))
+
+
+def _packed_case(seed, k, n, c, density):
+    """Planes of a kNN graph (density None) or of a random mask, and features."""
+    rng = np.random.RandomState(seed)
+    if density is None:
+        ind = np.asarray(jadj.count_adjacency(
+            knn_jnp(jnp.asarray(rng.randn(2, n, 3).astype(np.float32)), k), n, jnp.int8))
+    else:
+        ind = (rng.rand(2, n, n) < density).astype(np.int8)
+    packed = np.asarray(jadj.pack_indicator(jnp.asarray(ind)))
+    return packed, rng.randn(2, n, c).astype(np.float32)
+
+
+@pytest.mark.parametrize("density", [None, 0.05])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_neighbor_mean_matches(dtype, density):
+    """K4's plain version against the JAX ``packed_neighbor_mean`` on its jnp
+    route and its Pallas kernel in interpret mode (tests/test_ops.py:172),
+    for a kNN graph (k bits a row) and a 5%-dense mask (any popcount)."""
+    k, n, c = 6, 256, 48
+    packed, f = _packed_case(12, k, n, c, density)
+    jd = jnp.dtype(dtype)
+    jf = jnp.asarray(f).astype(jd)
+    tf = _t(f).to(getattr(torch, dtype))
+    got = tadj.packed_neighbor_mean(tf, _t(packed), k, getattr(torch, dtype))
+    assert got.dtype == tf.dtype and got.shape == (2, n, c)
+    got = got.float().numpy()
+    for impl in ("jnp", "pallas"):
+        want = np.asarray(jadj.packed_neighbor_mean(
+            jf, jnp.asarray(packed), k, impl=impl, interpret=True, dtype=jd
+        ).astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6, err_msg=impl)
+        else:  # an fp32 sum in another order may round to the neighbouring bf16
+            assert _within_bf16_ulps(got, want), impl
+    with pytest.raises(ValueError, match="packed columns"):
+        tadj.packed_neighbor_mean(tf[:, :100], _t(packed), k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_neighbor_mean_matches(dtype):
+    """The gather route's mean against the JAX ``gather_neighbor_mean``, from
+    int32 ids, with leading dims [2, 3]."""
+    rng = np.random.RandomState(13)
+    k = 9
+    x = rng.randn(2, 3, 150, 3).astype(np.float32)
+    idx = np.asarray(knn_jnp(jnp.asarray(x), k))
+    f = rng.randn(2, 3, 150, 40).astype(np.float32)
+    jf = jnp.asarray(f).astype(dtype)
+    want = np.asarray(jadj.gather_neighbor_mean(jf, jnp.asarray(idx)).astype(jnp.float32))
+    tf = _t(f).to(getattr(torch, dtype))
+    got = tadj.gather_neighbor_mean(tf, _t(idx))
+    assert got.dtype == tf.dtype and got.shape == (2, 3, 150, 40)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert _within_bf16_ulps(got, want)
+    # the same neighbour sets through the dense indicator: the same means
+    ind = tadj.count_adjacency(_t(idx), 150)
+    dense = tadj.neighbor_mean(_t(f), ind, torch.float32, 1.0 / k).numpy()
+    np.testing.assert_allclose(tadj.gather_neighbor_mean(_t(f), _t(idx)).numpy(), dense,
+                               rtol=1e-5, atol=1e-6)

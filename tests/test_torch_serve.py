@@ -214,3 +214,27 @@ def test_warmup_leaves_state_alone(embed):
     ix.warmup()
     m = ix.metrics()
     assert len(ix) == 0 and m["queries"] == 0 and m["device_rows_capacity"] == 0
+
+
+@pytest.mark.parametrize("fmt", ["packed", "gather"])
+def test_capacity_routes_serve_like_jax(jax_state, fmt):
+    """An index over a model on the packed or the gather route (the routes
+    ``auto`` takes past N=16384 and N=32768) answers with the JAX index's
+    ids, every added submap at rank 0 of its own query."""
+    pts = _clouds(37, 8)
+    flat = flatten_variables(jax_state.params, jax_state.batch_stats)
+    j_embed = j_build_embed_fn(JModelConfig(**TINY, adjacency_format=fmt))
+    t_embed = build_embed_fn(ModelConfig(**TINY, adjacency_format=fmt), device="cpu",
+                             variables=flat)
+    jx = JPlaceIndex(j_embed, jax_state.params, jax_state.batch_stats,
+                     descriptor_dim=256, embed_batch=4, block_rows=64)
+    tx = PlaceIndex(t_embed, descriptor_dim=256, embed_batch=4, block_rows=64,
+                    num_points=128, device="cpu")
+    tx.warmup()
+    jx.add(pts)
+    tx.add(pts)
+    np.testing.assert_allclose(tx._db, jx._db, atol=2e-4)
+    t_ids, _ = tx.query(pts, k=3)
+    j_ids, _ = jx.query(pts, k=3)
+    np.testing.assert_array_equal(t_ids, j_ids)
+    np.testing.assert_array_equal(t_ids[:, 0], np.arange(8))
