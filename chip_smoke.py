@@ -4,8 +4,9 @@
   python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
-(K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``), holds each
-against its plain PyTorch version on the card, builds the full-width EPC-Net
+(K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
+``knn_phase.cu``, K6 ``knn_pipelined.cu``), holds each against its plain
+PyTorch version on the card, builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
 
@@ -18,6 +19,13 @@ Every submap must retrieve itself at rank 0. Kernel launch counts are zeroed
 just before each serving run and read just after it. At N=32768 the three
 routes also run side by side on the same clouds and weights, and their
 descriptors must agree.
+
+Then the kNN trace path (``epcnet_torch.scripts.knn_trace``), counts zeroed
+before it: a profiler trace of B=8 forwards at N=4096, the phase ablation
+(K5 after 1 and k rounds and the threshold count, then K1) and K6 against
+K1; and the ablation once more at B=2, N=32768, where xyz is read from
+global memory, and at B=2 either side of K5's shared-memory cutoff (N=16384
+and N=20480).
 
 Output: progress lines with each phase's seconds, then a ``{"kernels":
 [...]}`` line, timing lines, the card's name and power limit, and as the last
@@ -38,9 +46,11 @@ import torch
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.models import param_count
 from epcnet_torch.models.epcnet import adjacency_route
-from epcnet_torch.ops import _build, adjacency, knn
+from epcnet_torch.ops import _build, adjacency, knn, knn_phases
+from epcnet_torch.scripts import knn_trace
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.step import build_embed_fn
+from epcnet_torch.utils.timing import cuda_ms
 from epcnet_torch.weights import init_flat_variables
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -56,6 +66,8 @@ COUNTERS = {
     "K2": (knn.knn_cuda, "launches"),
     "K3": (knn.knn_packed_cuda, "launches"),
     "K4": (adjacency.packed_neighbor_mean_cuda, "launches"),
+    "K5": (knn_phases.knn_phase_cuda, "launches"),
+    "K6": (knn_phases.knn_adjacency_pipelined_cuda, "launches"),
 }
 
 
@@ -98,20 +110,6 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, after
-    one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def submaps(rng, count: int, n: int):
     """Seeded place-like submaps: each a few gaussian blobs ("buildings"),
     3-12 of them with random sizes and shares, clipped to [-1, 1] — the
@@ -150,9 +148,10 @@ def check_k1(x, k, dtype, with_proxy=True) -> float:
     return float(err.max())
 
 
-def check_k2(x, k, with_adjacency=False) -> None:
+def check_k2(x, k, with_adjacency=False) -> float:
     """K2 against its plain version: ids and distances exactly equal (and
-    the optional indicator equal to K1's plain version)."""
+    the optional indicator equal to K1's plain version). Returns the
+    distances' max abs difference."""
     out = knn.knn_cuda(x, k, return_dists=True, with_adjacency=with_adjacency)
     ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
     torch.cuda.synchronize()
@@ -162,7 +161,7 @@ def check_k2(x, k, with_adjacency=False) -> None:
     if with_adjacency:
         adj_p, _ = knn.knn_adjacency_plain(x, k, with_proxy=False)
         assert torch.equal(out[2], adj_p), f"K2 indicator differs (B,N,k={shape},{k})"
-    del out, ids_p, dists_p
+    return float((out[1] - dists_p).abs().max())
 
 
 def check_k3(x, k, dtype) -> float:
@@ -200,6 +199,38 @@ def check_k4(f, planes, k, dtype) -> float:
     err = (got - want).abs()
     tol = 1.01e-6 * scale + (bf16_spacing(want) if f.dtype == torch.bfloat16 else 0)
     assert bool((err <= tol).all()), f"K4 error {float(err.max())} above tolerance"
+    return float(err.max())
+
+
+def check_k5(x, rounds, thresh):
+    """K5 against its plain version: exactly equal (the same fp32 arithmetic
+    on the card; +inf where the row has fewer than ``rounds`` distinct
+    values). Returns K5's output and the max abs difference (0 where both
+    are +inf)."""
+    got = knn_phases.knn_phase_cuda(x, rounds, thresh)
+    want = knn_phases.knn_phase_plain(x, rounds, thresh)
+    torch.cuda.synchronize()
+    err = float(torch.where(got == want, 0.0, (got - want).abs()).max())
+    bad = int((got != want).sum())
+    assert bad == 0, f"K5 differs in {bad} rows (B,N={tuple(x.shape[:2])}, rounds={rounds}, " \
+        f"thresh={thresh}; max abs err {err})"
+    return got, err
+
+
+def check_k6(x, k) -> float:
+    """K6 against its plain version: the indicator exactly equal, and equal
+    to K1's; the fp32 proxy within 1e-6 relative (an fp32 sum of bf16 values
+    in another order than cuBLAS's). Returns the proxy's max abs difference."""
+    adj, proxy = knn_phases.knn_adjacency_pipelined_cuda(x, k)
+    adj_p, proxy_p = knn_phases.knn_adjacency_pipelined_plain(x, k)
+    torch.cuda.synchronize()
+    shape = tuple(x.shape[:2])
+    assert torch.equal(adj, adj_p), f"K6 indicator differs (B,N,k={shape},{k})"
+    assert torch.equal(adj, knn.knn_adjacency_cuda(x, k, with_proxy=False)[0]), \
+        f"K6 indicator differs from K1's (B,N,k={shape},{k})"
+    assert proxy.dtype == torch.float32
+    err = (proxy - proxy_p).abs()
+    assert bool((err <= 1e-6 * proxy_p.abs() + 1e-7).all()), f"K6 proxy error {err.max()}"
     return float(err.max())
 
 
@@ -256,12 +287,12 @@ def main() -> int:
         check_k2(torch.round(cloud(2, 1001) * 4) / 4, 7)  # odd N, ties
         check_k2(cloud(1, 33), 33)  # k = N
         check_k2(cloud(1, 1), 1)
-        check_k2(torch.tensor(sub64k[:1], device=dev), k)  # the gather route's cloud
+        err_k2 = check_k2(torch.tensor(sub64k[:1], device=dev), k)  # the gather route's cloud
         check_k2(cloud(1, 131072), k)  # the largest rung the JAX package ran
         check_k2(grid, k, with_adjacency=True)
         check_k2(cloud(2, n), k, with_adjacency=True)
     log("phase K2 check: ok (ids and distances exact on 9 cases up to N=131072; "
-        "indicator exact at N=4096)")
+        f"indicator exact at N=4096; distances max abs err {err_k2} at N=65536)")
 
     # -- 4. K3 against its plain version -----------------------------------
     with Phase("K3 check"):
@@ -294,6 +325,36 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"phase K4 check: ok (max abs err {err_k4} on K3's planes, {err_rand} on a "
         "1/16-dense mask; fp32 within 1e-6 of mean |F|)")
+
+    # -- 5b. K5 and K6 against their plain versions ------------------------
+    with Phase("K5/K6 check"):
+        # x8 is the trace's batch (knn_trace.clouds(8, n), seed 0)
+        assert torch.equal(x8.cpu(), torch.from_numpy(knn_trace.clouds(8, n)))
+        dyadic = torch.round(cloud(2, n) * 8) / 8  # exact distances, ties in every row
+        few = torch.round(cloud(1, 1000))  # coordinates in {-1, 0, 1}: 10 distinct values
+        cases = [(x8, k), (dyadic, k), (cloud(2, 1001), k), (cloud(2, 40), k),
+                 (few, k), (cloud(1, 20000), k)]  # the last: xyz in global memory
+        # the ablation's other batches, B=2: either side of K5's shared-memory
+        # cutoff (N ~18,700) and the packed route's batch; K5 alone (K6 takes
+        # N up to ~27,700)
+        x16k, x20k = cloud(2, 16384), cloud(2, 20480)
+        smem = {npts: knn_phases.xyz_in_shared_memory(npts) for npts in (16384, 20480, 32768)}
+        assert smem == {16384: True, 20480: False, 32768: False}, smem
+        err_k5 = 0.0
+        for x in [c for c, _ in cases] + [x16k, x20k, x_pack]:
+            for rounds in (1, k):
+                for thresh in (False, True):
+                    err_k5 = max(err_k5, check_k5(x, rounds, thresh)[1])
+        for x, rounds in ((cloud(2, 40), 41), (few, k)):  # more rounds than values
+            got, e = check_k5(x, rounds, True)
+            assert bool(torch.isinf(got).all())
+            err_k5 = max(err_k5, e)
+        err_k6 = max(check_k6(x, kk) for x, kk in cases + [(cloud(1, 33), 33)])
+        torch.cuda.empty_cache()
+    log(f"phase K5/K6 check: ok (K5 exact on {len(cases) + 3} clouds up to B=2, N=32768 "
+        f"x 4 phases and 2 +inf cases, max abs err {err_k5}; xyz in shared memory {smem}; "
+        f"K6 indicator exact and equal to K1's on {len(cases) + 1} cases, proxy max abs "
+        f"err {err_k6})")
 
     # -- 6. the full-width model from seeded weights -----------------------
     with Phase("model"):
@@ -391,6 +452,34 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"phase serve capacity: launches {cap_counts}")
 
+    # -- 10b. the kNN trace path, launch counts zeroed ---------------------
+    with Phase("knn trace"):
+        zero_counts()
+        trace = knn_trace.main([])  # B=8, N=4096, k=20: prints its JSON line
+        trace_counts = read_counts()
+        assert trace["pipelined"]["adj_exact"], trace["pipelined"]
+        assert trace["pipelined"]["proxy_within_1e-6_rel"], trace["pipelined"]
+        assert trace["trace"]["ranked_by"] == "device", trace["trace"]["ranked_by"]
+        assert all(trace_counts[name] >= 1 for name in ("K1", "K5", "K6")), trace_counts
+        # the model's kNN span holds K1 alone: its device time a forward is
+        # phase D's, which the span attribution (region_ms) must reproduce
+        span = trace["trace"]["regions_ms"]["epcnet/knn_graph"]
+        span_ms = span["total_ms"] / trace["trace"]["forwards"]
+        d_ms = trace["phase_ms_per_batch"]["D_full_shipped"]
+        assert span["count"] == trace["trace"]["forwards"], span
+        assert abs(span_ms / d_ms - 1) <= 0.2, (span_ms, d_ms)
+        # the batches K5 was held against its plain version on
+        abl32 = knn_trace.phase_ablation(x_pack, k)  # the packed route's batch
+        log(json.dumps({"knn_ablation_b2_n32768": abl32}))
+        # either side of K5's shared-memory cutoff: what reading xyz from
+        # global memory costs each phase
+        regimes = [dict(knn_trace.phase_ablation(x, k), k5_xyz_in_shared_memory=smem[npts])
+                   for npts, x in ((16384, x16k), (20480, x20k))]
+        log(json.dumps({"knn_ablation_regimes": regimes}))
+        torch.cuda.empty_cache()
+    log(f"phase knn trace: K6 verdict {trace['pipelined']['verdict']}; kNN span "
+        f"{span_ms} ms a forward against phase D {d_ms} ms; launches {trace_counts}")
+
     # -- 11. timings, at the shapes the serving paths give each kernel -----
     with Phase("timings"):
         kernels = []
@@ -428,7 +517,7 @@ def main() -> int:
         ms_k2 = cuda_ms(lambda: knn.knn_cuda(x64, k), 10)
         plain_k2 = cuda_ms(lambda: knn.knn_plain(x64, k), 1)
         two_k2 = cuda_ms(lambda: torch.topk(torch.cdist(x64, x64), k, largest=False), 3)
-        entry("knn_ids", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151", cap_counts["K2"], 0.0,
+        entry("knn_ids", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151", cap_counts["K2"], err_k2,
               ms_k2, plain_k2, xyz_bytes(x64) + n64 * k * 4, 8 * n64 * n64, [1, n64, 3],
               two_call_ms=two_k2, two_call="torch.cdist + torch.topk(largest=False); "
               "sqrt distances, ties in no promised order")
@@ -462,6 +551,17 @@ def main() -> int:
               planes.numel() * 4 + 2 * f_relu.numel() * 2, set_bits * 64, [2, n32, 64],
               dense_product_ms=dense_k4, dense_product="torch.bmm of the unpacked bf16 "
               "mask with F, fp32 sum (the dense route's layer product; unpack not timed)")
+
+        # K5 and K6: the trace path's shape, B=8, N=4096; their times are the
+        # trace phase's (K5: phase C, k rounds and the threshold count)
+        plain_k5 = cuda_ms(lambda: knn_phases.knn_phase_plain(x8, k, True), 3)
+        entry("knn_phase", "knn_phase.cu", "scripts/hw_knn_trace.py:83", trace_counts["K5"],
+              err_k5, trace["phase_ms_per_batch"]["C_plus_threshold"], plain_k5,
+              xyz_bytes(x8) + 8 * n * 4, 8 * 8 * n * n, [8, n, 3], rounds=k, thresh=True)
+        plain_k6 = cuda_ms(lambda: knn_phases.knn_adjacency_pipelined_plain(x8, k), 3)
+        entry("knn_pipelined", "knn_pipelined.cu", "scripts/hw_knn_trace.py:162",
+              trace_counts["K6"], err_k6, trace["pipelined"]["pipelined_ms_per_batch"],
+              plain_k6, xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 4, 8 * 8 * n * n, [8, n, 3])
 
         # the routes: one embed batch each, by CUDA events (mean of 3)
         route_ms = []

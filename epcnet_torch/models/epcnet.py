@@ -31,6 +31,7 @@ from epcnet_torch.models.layers import ProxyConv, SharedMLP
 from epcnet_torch.models.vlad_head import GVLADHead, compute_dtype
 from epcnet_torch.ops.adjacency import gather_neighbor_mean, packed_neighbor_mean
 from epcnet_torch.ops.knn import knn, knn_adjacency
+from epcnet_torch.utils.profiling import profile_region
 
 # The JAX model's "auto" cutovers (models/epcnet.py there): packed past this
 # N when the bit-plane layout accepts N, gather past _GATHER_AUTO_N. Kept so
@@ -88,7 +89,8 @@ class EPCNet(nn.Module):
             raise NotImplementedError("training is not ported yet (ROADMAP item 4)")
         x = points.float()
         route = adjacency_route(self.cfg, x.shape[-2])
-        graph, proxy0 = self.build_graph(x, route)
+        with profile_region("epcnet/knn_graph"):
+            graph, proxy0 = self.build_graph(x, route)
         return self.forward_graph(x, graph, proxy0, route)
 
     def build_graph(self, x: torch.Tensor, route: str):
@@ -106,7 +108,9 @@ class EPCNet(nn.Module):
         """The network after the kNN graph, as ``build_graph`` gives it for
         ``route``. Split from ``forward`` so a caller can feed a graph from
         another source (the plain twins on the card, to hold the kernel path
-        against them)."""
+        against them). Its parts are named spans (``profile_region``):
+        ``epcnet/indicator_cast``, ``epcnet/proxyconv_{i}``, ``epcnet/lift``,
+        ``epcnet/gvlad``."""
         if route not in ("dense", "packed", "gather"):
             raise ValueError(f"route must be dense|packed|gather, got {route!r}")
         dtype = compute_dtype(self.cfg)
@@ -122,11 +126,15 @@ class EPCNet(nn.Module):
             elif route == "packed":
                 proxy = packed_neighbor_mean(f, graph, self.cfg.knn_k, dtype)
             elif a is None:
-                a = graph.to(dtype)  # once per forward, shared by layers 1..
-            f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy)
+                with profile_region("epcnet/indicator_cast"):
+                    a = graph.to(dtype)  # once per forward, shared by layers 1..
+            with profile_region(f"epcnet/proxyconv_{i}"):
+                f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy)
             scales.append(f)
-        f_lift = self.lift(torch.cat(scales, dim=-1))  # [B, N, feature_dim]
-        return self.gvlad(f_lift)
+        with profile_region("epcnet/lift"):
+            f_lift = self.lift(torch.cat(scales, dim=-1))  # [B, N, feature_dim]
+        with profile_region("epcnet/gvlad"):
+            return self.gvlad(f_lift)
 
 
 def param_count(model: nn.Module) -> int:

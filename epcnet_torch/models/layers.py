@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from epcnet_torch.ops.adjacency import neighbor_mean
+from epcnet_torch.utils.profiling import profile_region
 
 _TRAINING = "training is not ported yet (ROADMAP item 4, Training)"
 
@@ -102,8 +103,9 @@ class ProxyConv(nn.Module):
                 proxy: torch.Tensor | None = None, train: bool = False):
         if train:
             raise NotImplementedError(_TRAINING)
-        if proxy is None:
-            proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
-                                  adjacency_scale=1.0 / self.knn_k)
+        if proxy is None:  # the dense route's A @ F, a span of its own
+            with profile_region("epcnet/neighbor_mean"):
+                proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
+                                      adjacency_scale=1.0 / self.knn_k)
         h = torch.cat([proxy - features, features], dim=-1)
         return F.relu(self.bn(self.dense(h)))

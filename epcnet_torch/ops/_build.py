@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel source of the port, csrc/<name>.cu
-SOURCES = ("knn_adj", "knn_ids", "packed_mean")
+SOURCES = ("knn_adj", "knn_ids", "packed_mean", "knn_phase", "knn_pipelined")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -97,13 +97,19 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def launch(name: str, symbol: str, signature: str, *args) -> None:
+def call(name: str, symbol: str, signature: str, *args) -> int:
     """Call the C entry ``symbol`` of ``csrc/<name>.cu`` with ``args`` typed
-    by ``signature`` (one letter each: p pointer or None, i int, f float).
-    The entry returns the launch's cudaError_t; anything but 0 raises."""
+    by ``signature`` (one letter each: p pointer or None, i int, f float)
+    and return its int result."""
     fn = getattr(load(name), symbol)
     fn.argtypes = [_CTYPES[c] for c in signature]
     fn.restype = ctypes.c_int
-    err = fn(*args)
+    return fn(*args)
+
+
+def launch(name: str, symbol: str, signature: str, *args) -> None:
+    """``call`` a launch entry, which returns the launch's cudaError_t;
+    anything but 0 raises."""
+    err = call(name, symbol, signature, *args)
     if err != 0:
         raise RuntimeError(f"{symbol} (csrc/{name}.cu) failed: cudaError {err}")

@@ -5,10 +5,10 @@ JAX, so it runs where JAX is not installed:
 
   python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: ids, distances, indicators and bit planes exactly equal; the
-proxy within 1 bf16 ulp (an fp32 sum in another order), or 1e-6 relative in
-fp32. K4 sums the set rows of F in fp32 where its twin runs cuBLAS, so the
-two differ by fp32 rounding of the sum, at most about 1e-6 of the mean of
+Tolerances: ids, distances, indicators, bit planes and K5's values exactly
+equal; the proxy within 1 bf16 ulp (an fp32 sum in another order), or 1e-6
+relative in fp32 (K6's too). K4 sums the set rows of F in fp32 where its
+twin runs cuBLAS, so the two differ by fp32 rounding of the sum, at most about 1e-6 of the mean of
 |F| over the row's set bits: bf16 results within 1 bf16 ulp plus that, fp32
 results within that.
 """
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from epcnet_torch.configs import ModelConfig
-from epcnet_torch.ops import adjacency, knn
+from epcnet_torch.ops import adjacency, knn, knn_phases
 from epcnet_torch.train.step import build_embed_fn
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +207,63 @@ def test_routes_match_dense(cuda, route, dtype, tol):
     d_dense = dense(x)
     assert d_other.shape == (2, 256) and bool(torch.isfinite(d_other).all())
     assert float((d_other - d_dense).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("b,n,grid", [
+    (2, 4096, 8),  # a dyadic grid: distances exact, ties in every row
+    (2, 1001, None),  # odd N
+    (1, 20000, None),  # xyz read from global memory
+])
+@pytest.mark.parametrize("rounds,thresh", [(1, False), (1, True), (20, False), (20, True)])
+def test_k5_matches_plain(cuda, b, n, grid, rounds, thresh):
+    x = _cloud(n + rounds, b, n, cuda, grid)
+    before = knn_phases.knn_phase_cuda.launches
+    got = knn_phases.knn_phase(x, rounds, thresh)
+    assert knn_phases.knn_phase_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    assert torch.equal(got, knn_phases.knn_phase_plain(x, rounds, thresh))
+
+
+def test_k5_more_rounds_than_values(cuda):
+    x = _cloud(1, 2, 33, cuda)
+    for rounds in (33, 34, 1000):  # 33 points: at most 33 distinct values a row
+        got = knn_phases.knn_phase_cuda(x, rounds, thresh=True)
+        assert torch.equal(got, knn_phases.knn_phase_plain(x, rounds, thresh=True))
+        assert rounds == 33 or bool(torch.isinf(got).all())
+
+
+@pytest.mark.parametrize("b,n,k,grid", [
+    (2, 4096, 20, 8),  # ties
+    (2, 1001, 20, None),  # odd N
+    (1, 33, 33, None),  # k = N
+    (1, 20000, 20, None),  # xyz read from global memory
+])
+def test_k6_matches_plain_and_k1(cuda, b, n, k, grid):
+    x = _cloud(n + 5 * k, b, n, cuda, grid)
+    before = knn_phases.knn_adjacency_pipelined_cuda.launches
+    adj, proxy = knn_phases.knn_adjacency_pipelined(x, k)
+    assert knn_phases.knn_adjacency_pipelined_cuda.launches == before + 1
+    adj_p, proxy_p = knn_phases.knn_adjacency_pipelined_plain(x, k)
+    assert adj.dtype == torch.int8 and proxy.dtype == torch.float32
+    assert torch.equal(adj, adj_p)
+    assert torch.equal(adj, knn.knn_adjacency_cuda(x, k, with_proxy=False)[0])
+    _assert_proxy_close(proxy, proxy_p, torch.float32)
+
+
+def test_k6_rejects_n_past_shared_memory(cuda):
+    with pytest.raises(ValueError, match="shared memory"):
+        knn_phases.knn_adjacency_pipelined_cuda(_cloud(0, 1, 28672, cuda), 20)
+
+
+def test_shared_memory_plans(cuda):
+    """Where K5 keeps xyz and how far K6's warp pair fits in a block's
+    227 KB, as the kernels' own launch plans give them."""
+    assert knn_phases.xyz_in_shared_memory(16384)
+    assert knn_phases.xyz_in_shared_memory(18700)
+    assert not knn_phases.xyz_in_shared_memory(18800)
+    assert not knn_phases.xyz_in_shared_memory(32768)
+    with pytest.raises(ValueError, match="N=0"):
+        knn_phases.xyz_in_shared_memory(0)
+    x = _cloud(1, 1, 27700, cuda)
+    adj, _ = knn_phases.knn_adjacency_pipelined_cuda(x, 20)  # the largest N that fits
+    assert bool((adj.sum(-1, dtype=torch.int32) == 20).all())
