@@ -5,8 +5,10 @@
 
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
-``knn_phase.cu``, K6 ``knn_pipelined.cu``), holds each against its plain
-PyTorch version on the card, builds the full-width EPC-Net
+``knn_phase.cu``, K6 ``knn_pipelined.cu``; K2 and K3 on the tiled core
+``knn_tile.cuh`` for k <= 32, whose ptxas report must show no spill), holds
+each against its plain PyTorch version on the card, builds the full-width
+EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
 
@@ -36,6 +38,7 @@ non-zero; without a card it exits 2 and prints no result. Needs no network.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,7 +57,12 @@ from epcnet_torch.utils.timing import cuda_ms
 from epcnet_torch.weights import init_flat_variables
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# fp32 instructions a second outside the tensor cores: 132 SMs x 128 lanes x
+# 1.98 GHz. The data sheet's 67 TFLOP/s counts an FMA as two operations, but
+# the kernels are built with -fmad=false and spell out __fmul_rn/__fadd_rn,
+# so that distances stay bit-equal to the plain version: each of a pair's 8
+# operations is an instruction of its own.
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
 BF16_ULP = 2.0 ** -7
 # a 1-ulp bf16 difference in a neighbour mean moves a descriptor entry by
 # ~1e-4 (K1 against its plain twin at N=4096); the routes are held to 1e-3
@@ -64,7 +72,9 @@ COUNTERS = {
     "K1": (knn.knn_adjacency_cuda, "launches"),
     "K1'": (knn.knn_adjacency_cuda, "launches_no_proxy"),
     "K2": (knn.knn_cuda, "launches"),
+    "K2 k>32": (knn.knn_cuda, "launches_rounds"),
     "K3": (knn.knn_packed_cuda, "launches"),
+    "K3 k>32": (knn.knn_packed_cuda, "launches_rounds"),
     "K4": (adjacency.packed_neighbor_mean_cuda, "launches"),
     "K5": (knn_phases.knn_phase_cuda, "launches"),
     "K6": (knn_phases.knn_adjacency_pipelined_cuda, "launches"),
@@ -148,32 +158,47 @@ def check_k1(x, k, dtype, with_proxy=True) -> float:
     return float(err.max())
 
 
-def check_k2(x, k, with_adjacency=False) -> float:
+def check_k2(x, k, with_adjacency=False, splits=()) -> float:
     """K2 against its plain version: ids and distances exactly equal (and
-    the optional indicator equal to K1's plain version). Returns the
-    distances' max abs difference."""
+    the optional indicator equal to K1's plain version), through the
+    wrapper and then with each of ``splits`` threads a row forced on the
+    tiled core. Returns the distances' max abs difference."""
     out = knn.knn_cuda(x, k, return_dists=True, with_adjacency=with_adjacency)
     ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
     torch.cuda.synchronize()
     shape = tuple(x.shape[:2])
     assert torch.equal(out[0], ids_p), f"K2 ids differ (B,N,k={shape},{k})"
     assert torch.equal(out[1], dists_p), f"K2 distances differ (B,N,k={shape},{k})"
+    for split in splits:
+        ids, dists = torch.empty_like(ids_p), torch.empty_like(dists_p)
+        knn._launch_ids(x, k, ids, dists, None, split)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p), \
+            f"K2 differs at S={split} (B,N,k={shape},{k})"
     if with_adjacency:
         adj_p, _ = knn.knn_adjacency_plain(x, k, with_proxy=False)
         assert torch.equal(out[2], adj_p), f"K2 indicator differs (B,N,k={shape},{k})"
     return float((out[1] - dists_p).abs().max())
 
 
-def check_k3(x, k, dtype) -> float:
+def check_k3(x, k, dtype, splits=(), sign_bit=True) -> float:
     """K3 against its plain version: the planes exactly equal, the proxy
     within 1 bf16 ulp (bf16) or 1e-6 relative (fp32), and equal to K1's bit
-    for bit (one selection core). Returns the proxy's max abs difference."""
+    for bit (the one cross-check between the tiled core and K1's); then
+    with each of ``splits`` threads a row forced on the tiled core. Returns
+    the proxy's max abs difference."""
     planes, proxy = knn.knn_packed_cuda(x, k, dtype)
     planes_p, proxy_p = knn.knn_adjacency_plain(x, k, dtype, fmt="packed")
     torch.cuda.synchronize()
     bad = int((planes != planes_p).sum())
     assert bad == 0, f"K3 planes differ in {bad} words (B,N,k={tuple(x.shape[:2])},{k})"
-    assert bool((planes < 0).any()), "plane 31 (the sign bit) never set"
+    assert bool((planes < 0).any()) or not sign_bit, "plane 31 (the sign bit) never set"
+    for split in splits:
+        planes_s, proxy_s = knn._launch_adj(x, k, dtype, True, True, "K3", split)
+        torch.cuda.synchronize()
+        assert torch.equal(planes_s, planes_p) and torch.equal(proxy_s, proxy), \
+            f"K3 differs at S={split} (B,N,k={tuple(x.shape[:2])},{k})"
+        del planes_s
     del planes_p
     got, want = proxy.float(), proxy_p.float()
     err = (got - want).abs()
@@ -184,6 +209,13 @@ def check_k3(x, k, dtype) -> float:
     proxy_k1 = knn.knn_adjacency_cuda(x, k, dtype)[1]
     assert torch.equal(proxy, proxy_k1), "K3's proxy differs from K1's"
     return float(err.max())
+
+
+def x_sorted(x):
+    """The cloud stored in ascending x: a scanner's order, the worst case for
+    the tiled core's insertions."""
+    order = torch.sort(x[..., 0], dim=-1, stable=True).indices
+    return torch.gather(x, 1, order[..., None].expand(-1, -1, 3)).contiguous()
 
 
 def check_k4(f, planes, k, dtype) -> float:
@@ -234,6 +266,19 @@ def check_k6(x, k) -> float:
     return float(err.max())
 
 
+def spill_bytes(report: str) -> dict:
+    """{kernel: spill store + load bytes} from a ptxas -v report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = int(m.group(1)) + int(m.group(2))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, no result",
@@ -250,6 +295,11 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
+    tiled = {name: b for src in ("knn_ids", "knn_adj") if src in reports
+             for name, b in spill_bytes(reports[src]).items() if "tiled_kernel" in name}
+    assert all(b == 0 for b in tiled.values()), f"the tiled core spills: {tiled}"
+    log(f"phase build: the tiled core's {len(tiled)} kernels spill 0 bytes"
+        if tiled else "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
     cfg = ModelConfig()  # N=4096, k=20, bf16
@@ -291,19 +341,35 @@ def main() -> int:
         check_k2(cloud(1, 131072), k)  # the largest rung the JAX package ran
         check_k2(grid, k, with_adjacency=True)
         check_k2(cloud(2, n), k, with_adjacency=True)
-    log("phase K2 check: ok (ids and distances exact on 9 cases up to N=131072; "
-        f"indicator exact at N=4096; distances max abs err {err_k2} at N=65536)")
+        # the tiled core, also at every split S of a row's columns
+        splits = (1, 2, 4, 8)
+        check_k2(cloud(1, 1024), k, splits=splits)  # one tile exactly
+        check_k2(cloud(1, 1025), k, splits=splits)  # one point past it
+        check_k2(torch.round(cloud(1, 65536) * 6) / 6, k, splits=splits)  # ties across tiles
+        check_k2(torch.full((1, 40000, 3), 0.25, device=dev), k, splits=splits)  # identical
+        check_k2(x_sorted(cloud(1, 65536)), k, splits=splits)  # scan order: insertions
+        check_k2(cloud(2, n), 32, with_adjacency=True, splits=splits)  # the register limit
+        check_k2(cloud(2, n), 33, with_adjacency=True)  # one above: the value rounds
+    log("phase K2 check: ok (ids and distances exact on 16 cases up to N=131072, the "
+        "tiled core's 7 new ones at S = 1, 2, 4 and 8 too; indicator exact at N=4096, "
+        f"k=20, 32, 33; distances max abs err {err_k2} at N=65536)")
 
     # -- 4. K3 against its plain version -----------------------------------
     with Phase("K3 check"):
         x_pack = torch.tensor(sub32k[:2], device=dev)  # the packed route's batch
-        err_k3 = check_k3(x_pack, k, bf16)
-        err_k3 = max(err_k3, check_k3(torch.round(cloud(2, 32768) * 8) / 8, k, bf16))
-        check_k3(torch.round(cloud(2, 1024) * 4) / 4, 7, torch.float32)
+        err_k3 = check_k3(x_pack, k, bf16, splits=splits)
+        err_k3 = max(err_k3, check_k3(torch.round(cloud(2, 32768) * 8) / 8, k, bf16,
+                                      splits=splits))
+        check_k3(torch.round(cloud(2, 1024) * 4) / 4, 7, torch.float32, splits=splits)
         check_k3(cloud(1, 32), 32, bf16)  # k = N, one word a row
+        check_k3(cloud(1, 1056), k, bf16, splits=splits)  # one word column past a tile
+        check_k3(torch.full((1, 40000, 3), 0.25, device=dev), k, bf16, sign_bit=False)
+        check_k3(x_sorted(cloud(1, 32768)), k, torch.float32, splits=splits)
+        check_k3(cloud(2, n), 32, bf16, splits=splits)  # the register limit
+        check_k3(cloud(2, n), 33, bf16)  # one above: the value rounds
         torch.cuda.empty_cache()
-    log(f"phase K3 check: ok (planes exact on 4 cases; proxy max abs err {err_k3}, "
-        "equal to K1's)")
+    log(f"phase K3 check: ok (planes exact on 9 cases, at S = 1, 2, 4 and 8 too; proxy "
+        f"max abs err {err_k3}, equal to K1's)")
 
     # -- 5. K4 against its plain version -----------------------------------
     with Phase("K4 check"):
@@ -449,6 +515,8 @@ def main() -> int:
         cap_counts = read_counts()
         assert cap_counts["K3"] >= 1 and cap_counts["K2"] >= 1, cap_counts
         assert cap_counts["K4"] == 3 * cap_counts["K3"], cap_counts
+        # k=20: every K2 and K3 launch of the path ran on the tiled core
+        assert cap_counts["K2 k>32"] == 0 and cap_counts["K3 k>32"] == 0, cap_counts
         torch.cuda.empty_cache()
     log(f"phase serve capacity: launches {cap_counts}")
 
@@ -515,12 +583,29 @@ def main() -> int:
         x64 = torch.tensor(sub64k[:1], device=dev)
         n64 = 65536
         ms_k2 = cuda_ms(lambda: knn.knn_cuda(x64, k), 10)
+        x64s = x_sorted(x64)  # the same cloud in scan order: what insertions cost
+        ms_k2_sorted = cuda_ms(lambda: knn.knn_cuda(x64s, k), 10)
         plain_k2 = cuda_ms(lambda: knn.knn_plain(x64, k), 1)
         two_k2 = cuda_ms(lambda: torch.topk(torch.cdist(x64, x64), k, largest=False), 3)
         entry("knn_ids", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151", cap_counts["K2"], err_k2,
               ms_k2, plain_k2, xyz_bytes(x64) + n64 * k * 4, 8 * n64 * n64, [1, n64, 3],
-              two_call_ms=two_k2, two_call="torch.cdist + torch.topk(largest=False); "
+              ms_x_sorted=ms_k2_sorted, two_call_ms=two_k2,
+              two_call="torch.cdist + torch.topk(largest=False); "
               "sqrt distances, ties in no promised order")
+        # the tiled core at each split S (threads a row; 0: the kernel's choice)
+        ids64 = torch.empty((1, n64, k), dtype=torch.int32, device=dev)
+        k2_splits = {s_: cuda_ms(lambda: knn._launch_ids(x64, k, ids64, None, None, s_), 5)
+                     for s_ in (0, 1, 2, 4, 8)}
+        # and on one small cloud, where S = 1 leaves SMs idle (16 blocks at N=4096)
+        x4k, ids4k = cloud(1, n), torch.empty((1, n, k), dtype=torch.int32, device=dev)
+        k2_splits_n4096 = {s_: cuda_ms(lambda: knn._launch_ids(x4k, k, ids4k, None, None, s_),
+                                       20) for s_ in (0, 1, 2, 4, 8)}
+        # k above the register list: the value rounds, B=2, N=4096, k=33
+        x33 = cloud(2, n)
+        ms_r = cuda_ms(lambda: knn.knn_cuda(x33, 33), 5)
+        entry("knn_ids (k > 32)", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151",
+              cap_counts["K2 k>32"], 0.0, ms_r, cuda_ms(lambda: knn.knn_plain(x33, 33), 3),
+              xyz_bytes(x33) + 2 * n * 33 * 4, 8 * 2 * n * n, [2, n, 3], k=33)
         x131 = cloud(1, 131072)
         ms_k2_131 = cuda_ms(lambda: knn.knn_cuda(x131, k), 3)
         b131 = bound(xyz_bytes(x131) + 131072 * k * 4, 8 * 131072 ** 2)
@@ -536,6 +621,17 @@ def main() -> int:
               cap_counts["K3"], err_k3, ms_k3, plain_k3,
               xyz_bytes(x_pack) + 2 * n32 * n32 // 8 + 2 * n32 * 3 * 2,
               8 * 2 * n32 * n32, [2, n32, 3])
+        k3_splits = {s_: cuda_ms(lambda: knn._launch_adj(x_pack, k, bf16, True, True, "K3", s_),
+                                 5) for s_ in (0, 1, 2, 4, 8)}
+        ms_r3 = cuda_ms(lambda: knn.knn_packed_cuda(x33, 33, bf16), 5)
+        entry("knn_adj (packed, k > 32)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:119",
+              cap_counts["K3 k>32"], 0.0, ms_r3,
+              cuda_ms(lambda: knn.knn_adjacency_plain(x33, 33, bf16, fmt="packed"), 3),
+              xyz_bytes(x33) + 2 * n * n // 8 + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], k=33)
+        # the tiled core at K1's shape, B=32, N=4096: a reading for K1's future
+        tiled_b32 = {"k1_ms": ms32, "k2_ids_ms": cuda_ms(lambda: knn.knn_cuda(x32, k), 20),
+                     "k3_ms": cuda_ms(lambda: knn.knn_packed_cuda(x32, k, bf16), 20),
+                     "shape": [32, n, 3], "k": k}
 
         # K4: layers 1-3 of the packed route, B=2, N=32768, C=64, bf16
         f_relu = torch.relu(f64)  # a layer's input is a ReLU output
@@ -594,6 +690,9 @@ def main() -> int:
                               "bound_by": b8[1], "shape": [8, n, 3], "k": k}}))
     log(json.dumps({"k2_n131072": {"ms": ms_k2_131, "bound_ms": b131[0],
                                    "bound_by": b131[1], "shape": [1, 131072, 3], "k": k}}))
+    log(json.dumps({"tiled_splits": {"k2_b1_n65536": k2_splits, "k3_b2_n32768": k3_splits,
+                                     "k2_b1_n4096": k2_splits_n4096, "k": k}}))
+    log(json.dumps({"tiled_b32_n4096": tiled_b32}))
     log(json.dumps({"routes": route_ms}))
     log(json.dumps({"serve": {"embed_batch32_ms": embed_ms,
                               "query1_ms_median": sorted(q_ms)[len(q_ms) // 2],

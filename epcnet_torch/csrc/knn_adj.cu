@@ -9,31 +9,107 @@
 //       layout of epcnet_tpu/ops/adjacency.py; plane 31 is the sign bit.
 //
 // What it computes, per cloud b and query row i (N points, 1 <= k <= N):
-//   adj[b, i, j] = 1 for the k winners of knn_core.cuh (the k smallest
-//             (d[i, j], j), self included, ties to the lowest index);
+//   adj[b, i, j] = 1 for the k winners (the k smallest (d[i, j], j), self
+//             included, ties to the lowest index);
 //   proxy[b, i, c] = (sum over the k winners, in ascending j, of x[b, j, c]
 //             rounded to the compute dtype, summed in fp32) * float(1/k),
 //             cast to the compute dtype (bf16 or fp32).
 //
-// Bound on this card. K1: the indicator write is N^2 bytes per cloud — 16.8 MB
-// at N=4096, about 5.0 us per cloud at 3.35 TB/s; the distance arithmetic
-// (8 fp32 operations per pair) is 2.0 us per cloud at 67 TFLOP/s. K3: the
-// plane write is N^2/8 bytes per cloud, so the arithmetic bounds it — 0.13 ms
-// per cloud at N=32768 (the planes are 134 MB, 40 us).
+// Bound on this card (fp32 at 33.4e12 non-fused instructions a second: 132
+// SMs x 128 lanes x 1.98 GHz; -fmad=false keeps distances bit-equal, so no
+// FMA counts double). K1: the indicator write is N^2 bytes per cloud — 16.8
+// MB at N=4096, about 5.0 us per cloud at 3.35 TB/s; the distance arithmetic
+// (8 fp32 instructions a pair) is 4.0 us per cloud. K3: the plane write is
+// N^2/8 bytes per cloud, so the arithmetic bounds it — 0.26 ms per cloud at
+// N=32768 (the planes are 134 MB, 40 us).
 //
-// Design (simple and exact first; nothing here works toward that bound yet):
-// the selection core of knn_core.cuh marks each winner in a per-warp bitmask
-// in shared memory; the row is then written from the bitmask (K1: 16-byte
-// stores of 0/1 bytes; K3: each lane gathers the 32 plane bits of its words),
-// and the proxy walks the bitmask in ascending column order. At N above about
-// 18,500 xyz is read from global memory. Faster designs (a per-lane register
-// top-k, a threshold select, fewer global bytes) are later work.
+// K1 (and K3 for k > knn_tile::kMaxK): the warp-per-row core of knn_core.cuh
+// marks each winner in a per-warp bitmask in shared memory; the row is then
+// written from the bitmask (K1: 16-byte stores of 0/1 bytes; K3: each lane
+// gathers the 32 plane bits of its words), and the proxy walks the bitmask in
+// ascending column order. At N above about 18,500 xyz is read from global
+// memory.
+//
+// K3 for k <= kMaxK (32; the model's k is 20): knn_tile.cuh's tiled core.
+// The block zeroes its rows' planes with 16-byte stores; then each winner
+// ORs the plane bits of every winner of its row that falls in its word (two
+// winners can share a word) and stores the word, so a shared word is written
+// whole, with the same value, by each of its winners. The proxy walks the
+// row's k winners in ascending column order (k passes over k), reading their
+// coordinates from the input, and sums as K1 does, so the two proxies are
+// bit-equal.
 
 #include "knn_core.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
 using namespace knn_core;
+namespace kt = knn_tile;
+
+template <int S>
+__global__ void __launch_bounds__(kt::kThreads, 2)
+    knn_packed_tiled_kernel(const float* __restrict__ x, int n, int k,
+                            uint32_t* __restrict__ planes, void* proxy, int proxy_bf16,
+                            float inv_k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kt::rows_per_block(S);
+  const float* xb = x + static_cast<size_t>(b) * n * 3;
+  float* od;
+  int* oj;
+  kt::select_rows<S>(xb, n, k, row0, smem, od, oj);
+
+  const int rows = min(kt::rows_per_block(S), n - row0);
+  const int w_words = n >> 5;
+  int* key = reinterpret_cast<int*>(od);  // each winner's word * 32 + plane
+  for (int e = threadIdx.x; e < rows * k; e += kt::kThreads) {
+    const int plane = oj[e] / w_words;
+    key[e] = (oj[e] - plane * w_words) * 32 + plane;
+  }
+  uint32_t* p = planes + (static_cast<size_t>(b) * n + row0) * w_words;
+  kt::zero_bytes(p, static_cast<size_t>(rows) * w_words * 4);
+  __syncthreads();  // the keys are in place and the zeros land before the words
+  for (int e = threadIdx.x; e < rows * k; e += kt::kThreads) {
+    const int* rk = key + (e / k) * k;
+    const int w = key[e] >> 5;
+    uint32_t word = 0u;
+    for (int i = 0; i < k; ++i)
+      if ((rk[i] >> 5) == w) word |= 1u << (rk[i] & 31);
+    p[static_cast<size_t>(e / k) * w_words + w] = word;
+  }
+  if (proxy == nullptr) return;
+  for (int r = threadIdx.x; r < rows; r += kt::kThreads) {
+    const int* rj = oj + r * k;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    int last = -1;
+    for (int t = 0; t < k; ++t) {  // the winners in ascending column order
+      int j = INT_MAX;
+      for (int i = 0; i < k; ++i)
+        if (rj[i] > last && rj[i] < j) j = rj[i];
+      last = j;
+      s0 = __fadd_rn(s0, to_compute(__ldg(xb + 3 * j), proxy_bf16));
+      s1 = __fadd_rn(s1, to_compute(__ldg(xb + 3 * j + 1), proxy_bf16));
+      s2 = __fadd_rn(s2, to_compute(__ldg(xb + 3 * j + 2), proxy_bf16));
+    }
+    store_proxy(proxy, (static_cast<size_t>(b) * n + row0 + r) * 3, proxy_bf16, inv_k, s0,
+                s1, s2);
+  }
+}
+
+template <int S>
+cudaError_t launch_packed(const float* x, int b, int n, int k, uint32_t* planes,
+                          void* proxy, int proxy_bf16, float inv_k, cudaStream_t stream) {
+  const size_t smem = kt::smem_bytes(S, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_packed_tiled_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kt::rows_per_block(S) - 1) / kt::rows_per_block(S), b);
+  knn_packed_tiled_kernel<S><<<grid, kt::kThreads, smem, stream>>>(x, n, k, planes, proxy,
+                                                                   proxy_bf16, inv_k);
+  return cudaGetLastError();
+}
 
 template <bool kSmem, bool kPack>
 __global__ void knn_adj_kernel(const float* __restrict__ x, int n, int k,
@@ -87,7 +163,7 @@ cudaError_t launch(const float* x, int b, int n, int k, void* adj, void* proxy,
 }  // namespace
 
 // x: [B, N, 3] fp32 contiguous; adj: [B, N, N] int8 (pack = 0, K1) or
-// [B, N, N/32] int32 (pack = 1, K3; N % 32 == 0); proxy: [B, N, 3] in bf16
+// [B, N, N/32] int32 (pack = 1, K3 for k > 32; N % 32 == 0); proxy: [B, N, 3] in bf16
 // (proxy_bf16 = 1) or fp32, or NULL for the indicator alone. Launches on
 // `stream`, does not synchronise. Returns the launch's cudaError_t (0 = ok).
 extern "C" int knn_adj_launch(const float* x, int b, int n, int k, void* adj,
@@ -106,4 +182,30 @@ extern "C" int knn_adj_launch(const float* x, int b, int n, int k, void* adj,
   if (plan.in_smem)
     return launch<true, false>(x, b, n, k, adj, proxy, proxy_bf16, inv_k, plan, s);
   return launch<false, false>(x, b, n, k, adj, proxy, proxy_bf16, inv_k, plan, s);
+}
+
+// K3 on the tiled core: x [B, N, 3] fp32 contiguous, N % 32 == 0,
+// 1 <= k <= min(N, 32); planes [B, N, N/32] int32; proxy as knn_adj_launch's.
+// split is S, the threads a row (1, 2, 4 or 8), or 0 for the choice of
+// knn_tile::choose_split. Launches on `stream`, does not synchronise.
+extern "C" int knn_packed_launch(const float* x, int b, int n, int k, void* planes,
+                                 void* proxy, int proxy_bf16, float inv_k, int split,
+                                 void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || k > kt::kMaxK || n % 32 != 0)
+    return cudaErrorInvalidValue;
+  if (split == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    split = kt::choose_split(b, n, sms);
+  }
+  uint32_t* p = static_cast<uint32_t*>(planes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (split) {
+    case 1: return launch_packed<1>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+    case 2: return launch_packed<2>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+    case 4: return launch_packed<4>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+    case 8: return launch_packed<8>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

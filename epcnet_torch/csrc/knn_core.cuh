@@ -1,6 +1,7 @@
-// The selection core shared by the kNN kernels K1, K2 and K3 (knn_adj.cu,
-// knn_ids.cu), so that their neighbour sets, distances and proxies agree by
-// construction.
+// The warp-per-row selection core of K1 (knn_adj.cu), K5 and K6, and of K2
+// and K3 for k above knn_tile.cuh's register list (kMaxK); K2 and K3 at
+// k <= kMaxK run on knn_tile.cuh, which gives the same winners in the same
+// order.
 //
 // Per cloud b and query row i (N points, 1 <= k <= N):
 //   d[i, j] = ((0 + dx*dx) + dy*dy) + dz*dz in fp32, each product and sum
@@ -189,6 +190,29 @@ __device__ __forceinline__ void write_packed_row(const uint32_t* mask, int w_wor
   }
 }
 
+// A coordinate rounded to the compute dtype (bf16 or fp32), as a float.
+__device__ __forceinline__ float to_compute(float v, int proxy_bf16) {
+  return proxy_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// proxy[o .. o + 2] = (s0, s1, s2) * inv_k, cast to the compute dtype.
+__device__ __forceinline__ void store_proxy(void* proxy, size_t o, int proxy_bf16,
+                                            float inv_k, float s0, float s1, float s2) {
+  const float p0 = __fmul_rn(s0, inv_k), p1 = __fmul_rn(s1, inv_k),
+              p2 = __fmul_rn(s2, inv_k);
+  if (proxy_bf16) {
+    __nv_bfloat16* pb = static_cast<__nv_bfloat16*>(proxy) + o;
+    pb[0] = __float2bfloat16_rn(p0);
+    pb[1] = __float2bfloat16_rn(p1);
+    pb[2] = __float2bfloat16_rn(p2);
+  } else {
+    float* pf = static_cast<float*>(proxy) + o;
+    pf[0] = p0;
+    pf[1] = p1;
+    pf[2] = p2;
+  }
+}
+
 // The layer-0 proxy of one row: the winners in ascending column order, each
 // coordinate rounded to the compute dtype, summed in fp32, times float(1/k),
 // cast to the compute dtype. Every lane runs the same (warp-uniform) walk;
@@ -209,35 +233,13 @@ __device__ __forceinline__ void write_proxy(const uint32_t* mask, int words,
       while (bits) {
         const int j = (w0 + src) * 32 + __ffs(bits) - 1;
         bits &= bits - 1;
-        float v0 = coord<kSmem>(xs, stride, 0, j);
-        float v1 = coord<kSmem>(xs, stride, 1, j);
-        float v2 = coord<kSmem>(xs, stride, 2, j);
-        if (proxy_bf16) {
-          v0 = __bfloat162float(__float2bfloat16_rn(v0));
-          v1 = __bfloat162float(__float2bfloat16_rn(v1));
-          v2 = __bfloat162float(__float2bfloat16_rn(v2));
-        }
-        s0 = __fadd_rn(s0, v0);
-        s1 = __fadd_rn(s1, v1);
-        s2 = __fadd_rn(s2, v2);
+        s0 = __fadd_rn(s0, to_compute(coord<kSmem>(xs, stride, 0, j), proxy_bf16));
+        s1 = __fadd_rn(s1, to_compute(coord<kSmem>(xs, stride, 1, j), proxy_bf16));
+        s2 = __fadd_rn(s2, to_compute(coord<kSmem>(xs, stride, 2, j), proxy_bf16));
       }
     }
   }
-  if (lane == 0) {
-    const float p0 = __fmul_rn(s0, inv_k), p1 = __fmul_rn(s1, inv_k),
-                p2 = __fmul_rn(s2, inv_k);
-    if (proxy_bf16) {
-      __nv_bfloat16* pb = static_cast<__nv_bfloat16*>(proxy) + o;
-      pb[0] = __float2bfloat16_rn(p0);
-      pb[1] = __float2bfloat16_rn(p1);
-      pb[2] = __float2bfloat16_rn(p2);
-    } else {
-      float* pf = static_cast<float*>(proxy) + o;
-      pf[0] = p0;
-      pf[1] = p1;
-      pf[2] = p2;
-    }
-  }
+  if (lane == 0) store_proxy(proxy, o, proxy_bf16, inv_k, s0, s1, s2);
 }
 
 // Rows per block and where xyz lives, from N and the 32-bit words of bitmask

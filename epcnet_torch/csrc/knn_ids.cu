@@ -7,34 +7,80 @@
 // True) (:478).
 //
 // What it computes, per cloud b and query row i (N points, 1 <= k <= N):
-//   ids[b, i, r]   = the rank-r winner of knn_core.cuh (ascending fp32
-//                    distance, then ascending index; self included), int32;
+//   ids[b, i, r]   = the rank-r winner (ascending fp32 distance, then
+//                    ascending index; self included), int32;
 //   dists[b, i, r] = its squared distance, bit-equal to the plain version;
 //   adj[b, i, j]   = 1 for the k winners, 0 elsewhere (int8), when asked.
 //
-// Bound on this card: the distance arithmetic, 8 fp32 operations per pair —
-// 0.51 ms per cloud at N=65536 and 2.05 ms at N=131072 at 67 TFLOP/s; the
-// ids and distances written are N*k*8 bytes (10.5 MB at N=65536, 3 us).
+// Bound on this card: the distance arithmetic, 8 fp32 instructions a pair
+// (no FMA: -fmad=false keeps them bit-equal) at 132 SMs x 128 lanes x
+// 1.98 GHz = 33.4e12 a second: 1.03 ms a cloud at N=65536, 4.11 ms at
+// N=131072. The ids and distances written are N*k*8 bytes (10.5 MB at
+// N=65536, 3 us).
 //
-// Design (simple and exact first): the selection core's round r already
-// yields rank r, so lane r % 32 keeps the winner in a register and the warp
-// writes each 32 ranks with one coalesced store. Without the indicator no
-// bitmask exists: shared memory holds xyz alone, and at N above about 18,900
-// (every launch of the gather route) xyz is read from global memory. With
-// the indicator each warp keeps K1's bitmask (16 KB at N=131072, so the plan
-// halves the warps to fit) and writes the row as K1 does. Every index into
-// an output is 64-bit.
+// Two kernels, chosen by k (the wrapper, ops/knn.py::knn_cuda, states the
+// rule):
+//   k <= knn_tile::kMaxK (32; the model's k is 20): knn_tile.cuh's tiled
+//     core. A block's merged lists lie in shared memory as [rows][k], which
+//     is the layout of the block's stretch of ids and dists, so every thread
+//     stores a contiguous, coalesced run. The indicator rows are zeroed with
+//     16-byte stores, then the k ones of each row are set.
+//   k > kMaxK: knn_core.cuh's warp-per-row value rounds (the round r yields
+//     rank r; lane r % 32 keeps it and the warp stores 32 ranks at once).
+// Every index into an output is 64-bit.
 
 #include "knn_core.cuh"
+#include "knn_tile.cuh"
 
 namespace {
 
 using namespace knn_core;
+namespace kt = knn_tile;
+
+template <int S>
+__global__ void __launch_bounds__(kt::kThreads, 2)
+    knn_ids_tiled_kernel(const float* __restrict__ x, int n, int k,
+                         int32_t* __restrict__ ids, float* __restrict__ dists,
+                         int8_t* __restrict__ adj) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kt::rows_per_block(S);
+  float* od;
+  int* oj;
+  kt::select_rows<S>(x + static_cast<size_t>(b) * n * 3, n, k, row0, smem, od, oj);
+
+  const int rows = min(kt::rows_per_block(S), n - row0);
+  const size_t e0 = (static_cast<size_t>(b) * n + row0) * k;
+  for (int e = threadIdx.x; e < rows * k; e += kt::kThreads) {
+    ids[e0 + e] = oj[e];
+    if (dists != nullptr) dists[e0 + e] = od[e];
+  }
+  if (adj != nullptr) {
+    int8_t* a = adj + (static_cast<size_t>(b) * n + row0) * n;
+    kt::zero_bytes(a, static_cast<size_t>(rows) * n);
+    __syncthreads();  // the zeros land before the ones
+    for (int e = threadIdx.x; e < rows * k; e += kt::kThreads)
+      a[static_cast<size_t>(e / k) * n + oj[e]] = 1;
+  }
+}
+
+template <int S>
+cudaError_t launch_tiled(const float* x, int b, int n, int k, int32_t* ids, float* dists,
+                         int8_t* adj, cudaStream_t stream) {
+  const size_t smem = kt::smem_bytes(S, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_ids_tiled_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kt::rows_per_block(S) - 1) / kt::rows_per_block(S), b);
+  knn_ids_tiled_kernel<S><<<grid, kt::kThreads, smem, stream>>>(x, n, k, ids, dists, adj);
+  return cudaGetLastError();
+}
 
 template <bool kSmem, bool kAdj>
-__global__ void knn_ids_kernel(const float* __restrict__ x, int n, int k,
-                               int32_t* __restrict__ ids, float* __restrict__ dists,
-                               int8_t* __restrict__ adj, size_t mask_bytes) {
+__global__ void knn_ids_rounds_kernel(const float* __restrict__ x, int n, int k,
+                                      int32_t* __restrict__ ids, float* __restrict__ dists,
+                                      int8_t* __restrict__ adj, size_t mask_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -79,14 +125,14 @@ __global__ void knn_ids_kernel(const float* __restrict__ x, int n, int k,
 }
 
 template <bool kSmem, bool kAdj>
-cudaError_t launch(const float* x, int b, int n, int k, int32_t* ids, float* dists,
-                   int8_t* adj, const Plan& plan, cudaStream_t stream) {
+cudaError_t launch_rounds(const float* x, int b, int n, int k, int32_t* ids, float* dists,
+                          int8_t* adj, const Plan& plan, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_ids_kernel<kSmem, kAdj>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      knn_ids_rounds_kernel<kSmem, kAdj>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(plan.smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + plan.warps - 1) / plan.warps, b);
-  knn_ids_kernel<kSmem, kAdj><<<grid, plan.warps * 32, plan.smem, stream>>>(
+  knn_ids_rounds_kernel<kSmem, kAdj><<<grid, plan.warps * 32, plan.smem, stream>>>(
       x, n, k, ids, dists, adj, plan.mask_bytes);
   return cudaGetLastError();
 }
@@ -96,17 +142,41 @@ cudaError_t launch(const float* x, int b, int n, int k, int32_t* ids, float* dis
 // x: [B, N, 3] fp32 contiguous; ids: [B, N, k] int32; dists: [B, N, k] fp32
 // or NULL; adj: [B, N, N] int8 or NULL for no indicator. Launches on
 // `stream`, does not synchronise. Returns the launch's cudaError_t (0 = ok).
+//
+// knn_ids_launch: the tiled core, 1 <= k <= min(N, 32); split is S, the
+// threads a row (1, 2, 4 or 8), or 0 for knn_tile::choose_split's.
 extern "C" int knn_ids_launch(const float* x, int b, int n, int k, int32_t* ids,
-                              float* dists, int8_t* adj, void* stream) {
+                              float* dists, int8_t* adj, int split, void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || k > kt::kMaxK)
+    return cudaErrorInvalidValue;
+  if (split == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    split = kt::choose_split(b, n, sms);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (split) {
+    case 1: return launch_tiled<1>(x, b, n, k, ids, dists, adj, s);
+    case 2: return launch_tiled<2>(x, b, n, k, ids, dists, adj, s);
+    case 4: return launch_tiled<4>(x, b, n, k, ids, dists, adj, s);
+    case 8: return launch_tiled<8>(x, b, n, k, ids, dists, adj, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// knn_ids_rounds_launch: the warp-per-row value rounds, any 1 <= k <= N.
+extern "C" int knn_ids_rounds_launch(const float* x, int b, int n, int k, int32_t* ids,
+                                     float* dists, int8_t* adj, void* stream) {
   Plan plan;
   const size_t mask_words = adj ? static_cast<size_t>((n + 31) / 32) + 1 : 0;
   if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || !make_plan(n, mask_words, &plan))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (adj) {
-    if (plan.in_smem) return launch<true, true>(x, b, n, k, ids, dists, adj, plan, s);
-    return launch<false, true>(x, b, n, k, ids, dists, adj, plan, s);
+    if (plan.in_smem) return launch_rounds<true, true>(x, b, n, k, ids, dists, adj, plan, s);
+    return launch_rounds<false, true>(x, b, n, k, ids, dists, adj, plan, s);
   }
-  if (plan.in_smem) return launch<true, false>(x, b, n, k, ids, dists, adj, plan, s);
-  return launch<false, false>(x, b, n, k, ids, dists, adj, plan, s);
+  if (plan.in_smem) return launch_rounds<true, false>(x, b, n, k, ids, dists, adj, plan, s);
+  return launch_rounds<false, false>(x, b, n, k, ids, dists, adj, plan, s);
 }

@@ -16,8 +16,9 @@
 // the output here is [B, N] fp32.
 //
 // Bound on this card: operations. One pass over the row is 8 fp32
-// operations a pair (3 subtractions, 3 products, 2 sums): 2.0 us a cloud at
-// N=4096 and 0.13 ms at N=32768, at 67 TFLOP/s. The output is 4 bytes a row.
+// instructions a pair (3 subtractions, 3 products, 2 sums; no FMA, so that
+// they stay bit-equal): 4.0 us a cloud at N=4096 and 0.26 ms at N=32768, at
+// 33.4e12 fp32 instructions a second. The output is 4 bytes a row.
 //
 // Design: the phase prefix of the port's own selection core (knn_core.cuh),
 // not of the TPU kernel, so that the phases time what K1-K3 do on this

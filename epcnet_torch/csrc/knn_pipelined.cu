@@ -16,7 +16,7 @@
 //
 // Bound on this card: bytes, as K1's. The indicator is N^2 bytes a cloud:
 // 16.8 MB at N=4096, about 5.0 us at 3.35 TB/s; the distance arithmetic
-// (8 fp32 operations a pair) is 2.0 us at 67 TFLOP/s.
+// (8 fp32 instructions a pair, no FMA) is 4.0 us at 33.4e12 a second.
 //
 // Design: what the TPU variant tried, overlapping the production of
 // distances with the selection that consumes them, carried over to a block

@@ -10,7 +10,12 @@
   K3); both kernels are in ``csrc/knn_adj.cu``. A CPU tensor takes the plain
   version beside each kernel.
 
-There is no fallback from a kernel to its plain version. Order everywhere:
+K2 and K3 run on the tiled selection core (``csrc/knn_tile.cuh``: a block
+of query rows streams the cloud through shared memory, each thread keeps a
+register top-k) for k <= ``TILED_MAX_K``, and on the warp-per-row value
+rounds of ``csrc/knn_core.cuh`` (K1's core) above it: a rule on k, decided
+here, never a fallback. There is no fallback from a kernel to its plain
+version either. Order everywhere:
 ascending fp32 distance, then ascending index — the order of
 ``jax.lax.top_k(-d)``.
 """
@@ -22,6 +27,16 @@ import torch
 from epcnet_torch.ops import _build
 from epcnet_torch.ops.adjacency import count_adjacency, neighbor_mean, pack_indicator
 from epcnet_torch.ops.pairwise import pairwise_sqdist
+
+
+# the tiled core's register list (knn_tile::kMaxK in csrc/knn_tile.cuh)
+TILED_MAX_K = 32
+
+
+def tiled_core(k: int) -> bool:
+    """Whether K2 and K3 select k neighbours on the tiled core (else on the
+    value rounds): the rule on k, the same for both kernels."""
+    return k <= TILED_MAX_K
 
 
 def _check_k(k: int, n: int) -> None:
@@ -68,29 +83,46 @@ def _cloud_batch(x: torch.Tensor, k: int, name: str) -> torch.Tensor:
     return x.float().contiguous()
 
 
+def _launch_ids(x, k, ids, dists, adj, split: int = 0) -> bool:
+    """One launch of ``csrc/knn_ids.cu`` on checked tensors: the tiled core
+    for k <= ``TILED_MAX_K`` (``split`` threads a row, 0 for the kernel's
+    own choice), else the value rounds. Returns True for the rounds."""
+    ptrs = (x.data_ptr(), x.shape[0], x.shape[1], k, ids.data_ptr(),
+            None if dists is None else dists.data_ptr(),
+            None if adj is None else adj.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if tiled_core(k):
+            _build.launch("knn_ids", "knn_ids_launch", "piiipppip", *ptrs, split, stream)
+            return False
+        _build.launch("knn_ids", "knn_ids_rounds_launch", "piiipppp", *ptrs, stream)
+        return True
+
+
 def knn_cuda(x: torch.Tensor, k: int, return_dists: bool = False,
              with_adjacency: bool = False):
     """Launch K2 on ``torch.cuda.current_stream()``. x: [B, N, 3] on the
     card. Returns ids [B, N, k] int32, then the fp32 distances if
     ``return_dists``, then the int8 indicator [B, N, N] if
-    ``with_adjacency`` (a tuple when more than the ids are asked for). Each
-    launch adds one to ``knn_cuda.launches``."""
+    ``with_adjacency`` (a tuple when more than the ids are asked for).
+
+    k <= ``TILED_MAX_K`` (32) runs the tiled core, a larger k the value
+    rounds; both give the same ids and distances, checked on the card at
+    k = 32 and 33. Each launch adds one to ``knn_cuda.launches``, and one
+    of the value rounds also to ``knn_cuda.launches_rounds``."""
     x = _cloud_batch(x, k, "K2")
     b, n, _ = x.shape
     ids = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
     dists = torch.empty((b, n, k), dtype=torch.float32, device=x.device) if return_dists else None
     adj = torch.empty((b, n, n), dtype=torch.int8, device=x.device) if with_adjacency else None
-    with torch.cuda.device(x.device):
-        _build.launch("knn_ids", "knn_ids_launch", "piiipppp", x.data_ptr(), b, n, k,
-                      ids.data_ptr(), dists.data_ptr() if return_dists else None,
-                      adj.data_ptr() if with_adjacency else None,
-                      torch.cuda.current_stream().cuda_stream)
+    knn_cuda.launches_rounds += _launch_ids(x, k, ids, dists, adj)
     knn_cuda.launches += 1
     out = (ids,) + ((dists,) if return_dists else ()) + ((adj,) if with_adjacency else ())
     return out if len(out) > 1 else ids
 
 
 knn_cuda.launches = 0
+knn_cuda.launches_rounds = 0
 
 
 def knn(x: torch.Tensor, k: int, return_dists: bool = False):
@@ -128,8 +160,10 @@ def knn_adjacency_plain(x: torch.Tensor, k: int, dtype=torch.bfloat16,
     return (pack_indicator(ind) if fmt == "packed" else ind), proxy
 
 
-def _launch_adj(x, k, dtype, with_proxy, pack, name):
-    """One launch of ``csrc/knn_adj.cu``: K1 (pack=False) or K3."""
+def _launch_adj(x, k, dtype, with_proxy, pack, name, split: int = 0):
+    """One launch of ``csrc/knn_adj.cu``: K1 (pack=False) or K3, the latter
+    on the tiled core for k <= ``TILED_MAX_K`` (``split`` threads a row, 0
+    for the kernel's own choice). Returns (adj, proxy)."""
     x = _cloud_batch(x, k, name)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}'s proxy is bf16 or fp32, got {dtype}")
@@ -139,11 +173,14 @@ def _launch_adj(x, k, dtype, with_proxy, pack, name):
     shape, adt = ((b, n, n // 32), torch.int32) if pack else ((b, n, n), torch.int8)
     adj = torch.empty(shape, dtype=adt, device=x.device)
     proxy = torch.empty((b, n, 3), dtype=dtype, device=x.device) if with_proxy else None
+    args = (x.data_ptr(), b, n, k, adj.data_ptr(), proxy.data_ptr() if with_proxy else None,
+            int(dtype == torch.bfloat16), 1.0 / k)
     with torch.cuda.device(x.device):
-        _build.launch("knn_adj", "knn_adj_launch", "piiippifip", x.data_ptr(), b, n, k,
-                      adj.data_ptr(), proxy.data_ptr() if with_proxy else None,
-                      int(dtype == torch.bfloat16), 1.0 / k, int(pack),
-                      torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if pack and tiled_core(k):
+            _build.launch("knn_adj", "knn_packed_launch", "piiippifip", *args, split, stream)
+        else:
+            _build.launch("knn_adj", "knn_adj_launch", "piiippifip", *args, int(pack), stream)
     return adj, proxy
 
 
@@ -170,13 +207,18 @@ def knn_packed_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
                     with_proxy: bool = True):
     """Launch K3 on ``torch.cuda.current_stream()``: the indicator as int32
     bit planes [B, N, N/32] (N % 32 == 0) and the proxy [B, N, 3], equal to
-    K1's. Each launch adds one to ``knn_packed_cuda.launches``."""
+    K1's. k <= ``TILED_MAX_K`` (32) runs the tiled core, a larger k K1's
+    value rounds with the packed write; both are checked on the card at
+    k = 32 and 33. Each launch adds one to ``knn_packed_cuda.launches``,
+    and one of the value rounds also to ``knn_packed_cuda.launches_rounds``."""
     out = _launch_adj(x, k, dtype, with_proxy, True, "K3")
+    knn_packed_cuda.launches_rounds += not tiled_core(k)
     knn_packed_cuda.launches += 1
     return out
 
 
 knn_packed_cuda.launches = 0
+knn_packed_cuda.launches_rounds = 0
 
 
 def knn_adjacency(x: torch.Tensor, k: int, dtype=torch.bfloat16,

@@ -34,7 +34,11 @@ def cuda():
 
 def _cloud(seed, b, n, dev, grid=None):
     x = np.random.default_rng(seed).uniform(-1, 1, (b, n, 3)).astype(np.float32)
-    if grid:
+    if grid == "same":
+        x[:] = 0.25  # all points identical: every distance ties
+    elif grid == "xsorted":  # a scanner's order: the tiled core's most insertions
+        x = np.take_along_axis(x, np.argsort(x[..., :1], axis=1, kind="stable"), axis=1)
+    elif grid:
         x = np.round(x * grid) / grid  # a coarse grid: distance ties everywhere
     return torch.tensor(x, device=dev)
 
@@ -85,16 +89,41 @@ def test_k1_rejects_bad_input(cuda):
     (1, 1, 1, None),
     (1, 20000, 20, None),  # xyz read from global memory
     (1, 40000, 20, None),  # a gather-route size
+    (1, 1024, 20, None),  # one tile of the tiled core exactly
+    (1, 1025, 20, None),  # one point past it
+    (1, 65536, 20, 6),  # ties across tiles and split columns
+    (1, 40000, 20, "same"),  # all points identical
+    (1, 32768, 20, "xsorted"),  # scan order
+    (2, 4096, 32, None),  # k at the register list's size
+    (2, 4096, 33, None),  # one above: the value rounds
 ])
 def test_k2_matches_plain(cuda, b, n, k, grid):
     x = _cloud(n + 2 * k, b, n, cuda, grid)
-    before = knn.knn_cuda.launches
+    before = knn.knn_cuda.launches, knn.knn_cuda.launches_rounds
     ids, dists = knn.knn(x, k, return_dists=True)
-    assert knn.knn_cuda.launches == before + 1
+    assert knn.knn_cuda.launches == before[0] + 1
+    assert knn.knn_cuda.launches_rounds == before[1] + (k > knn.TILED_MAX_K)
     ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
     assert ids.dtype == torch.int32 and dists.dtype == torch.float32
     assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p)
     assert torch.equal(knn.knn_cuda(x, k), ids)  # ids alone, no distances
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,k,grid", [(1025, 20, None), (4096, 32, 6), (8192, 20, "xsorted")])
+def test_tiled_core_splits_match_plain(cuda, split, n, k, grid):
+    """The tiled core with a row's columns over S threads, S forced: K2's
+    ids and distances and K3's planes and proxy as with the wrapper's S."""
+    x = _cloud(n + split, 2, n, cuda, grid)
+    ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
+    ids, dists = torch.empty_like(ids_p), torch.empty_like(dists_p)
+    knn._launch_ids(x, k, ids, dists, None, split)
+    assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p)
+    xp = x[:, : n // 32 * 32].contiguous()
+    planes, proxy = knn._launch_adj(xp, k, torch.bfloat16, True, True, "K3", split)
+    planes_w, proxy_w = knn.knn_packed_cuda(xp, k)
+    assert torch.equal(planes, planes_w) and torch.equal(proxy, proxy_w)
+    assert torch.equal(planes, knn.knn_adjacency_plain(xp, k, fmt="packed")[0])
 
 
 def test_k2_indicator_matches_k1(cuda):
@@ -112,17 +141,25 @@ def test_k2_indicator_matches_k1(cuda):
     (2, 1024, 7, "float32", 4),
     (1, 32, 32, "bfloat16", None),  # k = N, one word per row
     (1, 20480, 20, "bfloat16", None),  # xyz read from global memory
+    (1, 1024, 20, "bfloat16", None),  # one tile of the tiled core exactly
+    (1, 1056, 20, "bfloat16", None),  # one word column past it
+    (1, 40000, 20, "bfloat16", "same"),  # all points identical
+    (1, 32768, 20, "float32", "xsorted"),  # scan order
+    (1, 4096, 32, "bfloat16", None),  # k at the register list's size
+    (1, 4096, 33, "bfloat16", None),  # one above: the value rounds
 ])
 def test_k3_matches_plain(cuda, b, n, k, dtype, grid):
     x = _cloud(n + 3 * k, b, n, cuda, grid)
     dt = getattr(torch, dtype)
-    before = knn.knn_packed_cuda.launches
+    before = knn.knn_packed_cuda.launches, knn.knn_packed_cuda.launches_rounds
     planes, proxy = knn.knn_adjacency(x, k, dt, fmt="packed")
-    assert knn.knn_packed_cuda.launches == before + 1
+    assert knn.knn_packed_cuda.launches == before[0] + 1
+    assert knn.knn_packed_cuda.launches_rounds == before[1] + (k > knn.TILED_MAX_K)
     planes_p, proxy_p = knn.knn_adjacency_plain(x, k, dt, fmt="packed")
     assert planes.dtype == torch.int32 and planes.shape == (b, n, n // 32)
     assert torch.equal(planes, planes_p)
-    assert bool((planes < 0).any())  # plane 31, the sign bit, is hit
+    # plane 31, the sign bit, is hit (identical points: the winners are 0..k-1)
+    assert bool((planes < 0).any()) or grid == "same"
     _assert_proxy_close(proxy, proxy_p, dt)
     # the same kernel core as K1: its proxy is K1's, bit for bit
     assert torch.equal(proxy, knn.knn_adjacency_cuda(x, k, dt)[1])

@@ -4,6 +4,8 @@ them on the CPU. ``knn`` (K2's plain version) against ``knn_jnp`` and
 ``knn_pallas``; ``knn_adjacency`` dense (K1's) and packed (K3's) against
 ``knn_adjacency(impl="jnp")`` and ``knn_with_adjacency_pallas``."""
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,6 +91,17 @@ def test_cpu_tensor_never_launches():
     for launch in counters:
         with pytest.raises(ValueError, match="CUDA tensor"):
             launch(torch.zeros(1, 32, 3), 4)
+
+
+@pytest.mark.parametrize("k,tiled", [(1, True), (20, True), (32, True), (33, False),
+                                     (4096, False)])
+def test_k_rule_matches_the_kernel_source(k, tiled):
+    """K2 and K3 run on the tiled core up to its register list and on the
+    value rounds above it. The rule's size is the CUDA source's kMaxK, so a
+    wrapper never asks the tiled entry for a k it refuses."""
+    src = (Path(tknn.__file__).resolve().parent.parent / "csrc" / "knn_tile.cuh").read_text()
+    assert f"constexpr int kMaxK = {tknn.TILED_MAX_K};" in src
+    assert tknn.tiled_core(k) is tiled
 
 
 def _knn_cases():
