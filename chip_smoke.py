@@ -171,7 +171,8 @@ def check_k2(x, k, with_adjacency=False, splits=()) -> float:
     assert torch.equal(out[1], dists_p), f"K2 distances differ (B,N,k={shape},{k})"
     for split in splits:
         ids, dists = torch.empty_like(ids_p), torch.empty_like(dists_p)
-        knn._launch_ids(x, k, ids, dists, None, split)
+        assert not knn._launch_ids(x, k, ids, dists, None, split), \
+            f"a forced S ran the value rounds (k={k})"
         torch.cuda.synchronize()
         assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p), \
             f"K2 differs at S={split} (B,N,k={shape},{k})"
@@ -194,7 +195,8 @@ def check_k3(x, k, dtype, splits=(), sign_bit=True) -> float:
     assert bad == 0, f"K3 planes differ in {bad} words (B,N,k={tuple(x.shape[:2])},{k})"
     assert bool((planes < 0).any()) or not sign_bit, "plane 31 (the sign bit) never set"
     for split in splits:
-        planes_s, proxy_s = knn._launch_adj(x, k, dtype, True, True, "K3", split)
+        planes_s, proxy_s, rounds = knn._launch_adj(x, k, dtype, True, True, "K3", split)
+        assert not rounds, f"a forced S ran the value rounds (k={k})"
         torch.cuda.synchronize()
         assert torch.equal(planes_s, planes_p) and torch.equal(proxy_s, proxy), \
             f"K3 differs at S={split} (B,N,k={tuple(x.shape[:2])},{k})"
@@ -295,11 +297,14 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
-    tiled = {name: b for src in ("knn_ids", "knn_adj") if src in reports
+    rebuilt = [src for src in ("knn_ids", "knn_adj") if src in reports]
+    tiled = {name: b for src in rebuilt
              for name, b in spill_bytes(reports[src]).items() if "tiled_kernel" in name}
+    # each source's tiled kernel at S = 1, 2, 4 and 8: four reports a source
+    assert len(tiled) == 4 * len(rebuilt), f"ptxas reported {sorted(tiled)} for {rebuilt}"
     assert all(b == 0 for b in tiled.values()), f"the tiled core spills: {tiled}"
     log(f"phase build: the tiled core's {len(tiled)} kernels spill 0 bytes"
-        if tiled else "phase build: kernels were built before; no ptxas report")
+        if rebuilt else "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
     cfg = ModelConfig()  # N=4096, k=20, bf16
@@ -349,10 +354,11 @@ def main() -> int:
         check_k2(torch.full((1, 40000, 3), 0.25, device=dev), k, splits=splits)  # identical
         check_k2(x_sorted(cloud(1, 65536)), k, splits=splits)  # scan order: insertions
         check_k2(cloud(2, n), 32, with_adjacency=True, splits=splits)  # the register limit
-        check_k2(cloud(2, n), 33, with_adjacency=True)  # one above: the value rounds
+        x33 = cloud(2, n)  # k one above the register list: the value rounds
+        err_k2_r = check_k2(x33, 33, with_adjacency=True)
     log("phase K2 check: ok (ids and distances exact on 16 cases up to N=131072, the "
         "tiled core's 7 new ones at S = 1, 2, 4 and 8 too; indicator exact at N=4096, "
-        f"k=20, 32, 33; distances max abs err {err_k2} at N=65536)")
+        f"k=20, 32, 33; distances max abs err {err_k2} at N=65536, {err_k2_r} at k=33)")
 
     # -- 4. K3 against its plain version -----------------------------------
     with Phase("K3 check"):
@@ -366,10 +372,10 @@ def main() -> int:
         check_k3(torch.full((1, 40000, 3), 0.25, device=dev), k, bf16, sign_bit=False)
         check_k3(x_sorted(cloud(1, 32768)), k, torch.float32, splits=splits)
         check_k3(cloud(2, n), 32, bf16, splits=splits)  # the register limit
-        check_k3(cloud(2, n), 33, bf16)  # one above: the value rounds
+        err_k3_r = check_k3(x33, 33, bf16)  # one above: the value rounds
         torch.cuda.empty_cache()
     log(f"phase K3 check: ok (planes exact on 9 cases, at S = 1, 2, 4 and 8 too; proxy "
-        f"max abs err {err_k3}, equal to K1's)")
+        f"max abs err {err_k3}, {err_k3_r} at k=33, equal to K1's)")
 
     # -- 5. K4 against its plain version -----------------------------------
     with Phase("K4 check"):
@@ -600,11 +606,10 @@ def main() -> int:
         x4k, ids4k = cloud(1, n), torch.empty((1, n, k), dtype=torch.int32, device=dev)
         k2_splits_n4096 = {s_: cuda_ms(lambda: knn._launch_ids(x4k, k, ids4k, None, None, s_),
                                        20) for s_ in (0, 1, 2, 4, 8)}
-        # k above the register list: the value rounds, B=2, N=4096, k=33
-        x33 = cloud(2, n)
+        # k above the register list: the value rounds, on the checked x33
         ms_r = cuda_ms(lambda: knn.knn_cuda(x33, 33), 5)
         entry("knn_ids (k > 32)", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151",
-              cap_counts["K2 k>32"], 0.0, ms_r, cuda_ms(lambda: knn.knn_plain(x33, 33), 3),
+              cap_counts["K2 k>32"], err_k2_r, ms_r, cuda_ms(lambda: knn.knn_plain(x33, 33), 3),
               xyz_bytes(x33) + 2 * n * 33 * 4, 8 * 2 * n * n, [2, n, 3], k=33)
         x131 = cloud(1, 131072)
         ms_k2_131 = cuda_ms(lambda: knn.knn_cuda(x131, k), 3)
@@ -625,7 +630,7 @@ def main() -> int:
                                  5) for s_ in (0, 1, 2, 4, 8)}
         ms_r3 = cuda_ms(lambda: knn.knn_packed_cuda(x33, 33, bf16), 5)
         entry("knn_adj (packed, k > 32)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:119",
-              cap_counts["K3 k>32"], 0.0, ms_r3,
+              cap_counts["K3 k>32"], err_k3_r, ms_r3,
               cuda_ms(lambda: knn.knn_adjacency_plain(x33, 33, bf16, fmt="packed"), 3),
               xyz_bytes(x33) + 2 * n * n // 8 + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], k=33)
         # the tiled core at K1's shape, B=32, N=4096: a reading for K1's future

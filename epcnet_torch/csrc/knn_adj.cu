@@ -162,18 +162,41 @@ cudaError_t launch(const float* x, int b, int n, int k, void* adj, void* proxy,
 
 }  // namespace
 
-// x: [B, N, 3] fp32 contiguous; adj: [B, N, N] int8 (pack = 0, K1) or
-// [B, N, N/32] int32 (pack = 1, K3 for k > 32; N % 32 == 0); proxy: [B, N, 3] in bf16
-// (proxy_bf16 = 1) or fp32, or NULL for the indicator alone. Launches on
-// `stream`, does not synchronise. Returns the launch's cudaError_t (0 = ok).
+// x: [B, N, 3] fp32 contiguous, 1 <= k <= N; adj: [B, N, N] int8 (pack = 0,
+// K1) or [B, N, N/32] int32 (pack = 1, K3; N % 32 == 0); proxy: [B, N, 3] in
+// bf16 (proxy_bf16 = 1) or fp32, or NULL for the indicator alone.
+//
+// The core is picked here, the one place the rule lives: K3 with k <=
+// knn_tile::kMaxK runs the tiled core, K1 and K3 with a larger k the value
+// rounds; *tiled (if not NULL) is set to 1 for the former, 0 for the latter.
+// split is the tiled core's S, the threads a row (1, 2, 4 or 8), or 0 for
+// knn_tile::choose_split's; an S where the value rounds run is refused. The
+// wrappers pass 0; a forced S lets chip_smoke.py check every instantiation
+// and time each S beside the rule's choice (the evidence for choose_split).
+//
+// Launches on `stream`, does not synchronise. Returns the launch's
+// cudaError_t (0 = ok).
 extern "C" int knn_adj_launch(const float* x, int b, int n, int k, void* adj,
                               void* proxy, int proxy_bf16, float inv_k, int pack,
-                              void* stream) {
-  Plan plan;
-  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || (pack && n % 32 != 0) ||
-      !make_plan(n, static_cast<size_t>((n + 31) / 32) + 1, &plan))
+                              int split, int* tiled, void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || (pack && n % 32 != 0))
     return cudaErrorInvalidValue;
+  const bool use_tiled = pack && k <= kt::kMaxK;
+  if (tiled != nullptr) *tiled = use_tiled;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_tiled) {
+    uint32_t* p = static_cast<uint32_t*>(adj);
+    switch (kt::launch_split(split, b, n)) {
+      case 1: return launch_packed<1>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+      case 2: return launch_packed<2>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+      case 4: return launch_packed<4>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+      case 8: return launch_packed<8>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  Plan plan;
+  if (split != 0 || !make_plan(n, static_cast<size_t>((n + 31) / 32) + 1, &plan))
+    return cudaErrorInvalidValue;
   if (pack) {
     if (plan.in_smem)
       return launch<true, true>(x, b, n, k, adj, proxy, proxy_bf16, inv_k, plan, s);
@@ -182,30 +205,4 @@ extern "C" int knn_adj_launch(const float* x, int b, int n, int k, void* adj,
   if (plan.in_smem)
     return launch<true, false>(x, b, n, k, adj, proxy, proxy_bf16, inv_k, plan, s);
   return launch<false, false>(x, b, n, k, adj, proxy, proxy_bf16, inv_k, plan, s);
-}
-
-// K3 on the tiled core: x [B, N, 3] fp32 contiguous, N % 32 == 0,
-// 1 <= k <= min(N, 32); planes [B, N, N/32] int32; proxy as knn_adj_launch's.
-// split is S, the threads a row (1, 2, 4 or 8), or 0 for the choice of
-// knn_tile::choose_split. Launches on `stream`, does not synchronise.
-extern "C" int knn_packed_launch(const float* x, int b, int n, int k, void* planes,
-                                 void* proxy, int proxy_bf16, float inv_k, int split,
-                                 void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || k > kt::kMaxK || n % 32 != 0)
-    return cudaErrorInvalidValue;
-  if (split == 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    split = kt::choose_split(b, n, sms);
-  }
-  uint32_t* p = static_cast<uint32_t*>(planes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (split) {
-    case 1: return launch_packed<1>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
-    case 2: return launch_packed<2>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
-    case 4: return launch_packed<4>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
-    case 8: return launch_packed<8>(x, b, n, k, p, proxy, proxy_bf16, inv_k, s);
-    default: return cudaErrorInvalidValue;
-  }
 }

@@ -18,8 +18,7 @@
 // N=131072. The ids and distances written are N*k*8 bytes (10.5 MB at
 // N=65536, 3 us).
 //
-// Two kernels, chosen by k (the wrapper, ops/knn.py::knn_cuda, states the
-// rule):
+// Two kernels; knn_ids_launch picks one by k, the one place the rule lives:
 //   k <= knn_tile::kMaxK (32; the model's k is 20): knn_tile.cuh's tiled
 //     core. A block's merged lists lie in shared memory as [rows][k], which
 //     is the layout of the block's stretch of ids and dists, so every thread
@@ -139,44 +138,42 @@ cudaError_t launch_rounds(const float* x, int b, int n, int k, int32_t* ids, flo
 
 }  // namespace
 
-// x: [B, N, 3] fp32 contiguous; ids: [B, N, k] int32; dists: [B, N, k] fp32
-// or NULL; adj: [B, N, N] int8 or NULL for no indicator. Launches on
-// `stream`, does not synchronise. Returns the launch's cudaError_t (0 = ok).
+// x: [B, N, 3] fp32 contiguous, 1 <= k <= N; ids: [B, N, k] int32; dists:
+// [B, N, k] fp32 or NULL; adj: [B, N, N] int8 or NULL for no indicator.
+// k <= knn_tile::kMaxK runs the tiled core, a larger k the value rounds;
+// *tiled (if not NULL) is set to 1 for the former, 0 for the latter.
 //
-// knn_ids_launch: the tiled core, 1 <= k <= min(N, 32); split is S, the
-// threads a row (1, 2, 4 or 8), or 0 for knn_tile::choose_split's.
+// split is the tiled core's S, the threads a row (1, 2, 4 or 8), or 0 for
+// knn_tile::choose_split's; an S with k > kMaxK is refused. The wrappers
+// pass 0. A forced S is what lets chip_smoke.py hold every instantiation
+// against the plain version and time each S beside the rule's choice, the
+// standing evidence for choose_split.
+//
+// Launches on `stream`, does not synchronise. Returns the launch's
+// cudaError_t (0 = ok).
 extern "C" int knn_ids_launch(const float* x, int b, int n, int k, int32_t* ids,
-                              float* dists, int8_t* adj, int split, void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || k > kt::kMaxK)
-    return cudaErrorInvalidValue;
-  if (split == 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    split = kt::choose_split(b, n, sms);
-  }
+                              float* dists, int8_t* adj, int split, int* tiled,
+                              void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n) return cudaErrorInvalidValue;
+  const bool use_tiled = k <= kt::kMaxK;
+  if (tiled != nullptr) *tiled = use_tiled;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (split) {
+  if (!use_tiled) {
+    Plan plan;
+    const size_t mask_words = adj ? static_cast<size_t>((n + 31) / 32) + 1 : 0;
+    if (split != 0 || !make_plan(n, mask_words, &plan)) return cudaErrorInvalidValue;
+    if (adj) {
+      if (plan.in_smem) return launch_rounds<true, true>(x, b, n, k, ids, dists, adj, plan, s);
+      return launch_rounds<false, true>(x, b, n, k, ids, dists, adj, plan, s);
+    }
+    if (plan.in_smem) return launch_rounds<true, false>(x, b, n, k, ids, dists, adj, plan, s);
+    return launch_rounds<false, false>(x, b, n, k, ids, dists, adj, plan, s);
+  }
+  switch (kt::launch_split(split, b, n)) {
     case 1: return launch_tiled<1>(x, b, n, k, ids, dists, adj, s);
     case 2: return launch_tiled<2>(x, b, n, k, ids, dists, adj, s);
     case 4: return launch_tiled<4>(x, b, n, k, ids, dists, adj, s);
     case 8: return launch_tiled<8>(x, b, n, k, ids, dists, adj, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// knn_ids_rounds_launch: the warp-per-row value rounds, any 1 <= k <= N.
-extern "C" int knn_ids_rounds_launch(const float* x, int b, int n, int k, int32_t* ids,
-                                     float* dists, int8_t* adj, void* stream) {
-  Plan plan;
-  const size_t mask_words = adj ? static_cast<size_t>((n + 31) / 32) + 1 : 0;
-  if (b < 1 || b > 65535 || n < 1 || k < 1 || k > n || !make_plan(n, mask_words, &plan))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (adj) {
-    if (plan.in_smem) return launch_rounds<true, true>(x, b, n, k, ids, dists, adj, plan, s);
-    return launch_rounds<false, true>(x, b, n, k, ids, dists, adj, plan, s);
-  }
-  if (plan.in_smem) return launch_rounds<true, false>(x, b, n, k, ids, dists, adj, plan, s);
-  return launch_rounds<false, false>(x, b, n, k, ids, dists, adj, plan, s);
 }

@@ -332,4 +332,14 @@ inline int choose_split(int b, int n, int sms) {
   return s;
 }
 
+// S for a launch: `split` where the caller forces one, else choose_split's
+// on the current device.
+inline int launch_split(int split, int b, int n) {
+  if (split != 0) return split;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return choose_split(b, n, sms);
+}
+
 }  // namespace knn_tile

@@ -12,31 +12,23 @@
 
 K2 and K3 run on the tiled selection core (``csrc/knn_tile.cuh``: a block
 of query rows streams the cloud through shared memory, each thread keeps a
-register top-k) for k <= ``TILED_MAX_K``, and on the warp-per-row value
-rounds of ``csrc/knn_core.cuh`` (K1's core) above it: a rule on k, decided
-here, never a fallback. There is no fallback from a kernel to its plain
-version either. Order everywhere:
+register top-k) for k up to its register list (32), and on the warp-per-row
+value rounds of ``csrc/knn_core.cuh`` (K1's core) above it: a rule on k
+that each kernel's C entry applies and reports, never a fallback. There is
+no fallback from a kernel to its plain version either. Order everywhere:
 ascending fp32 distance, then ascending index — the order of
 ``jax.lax.top_k(-d)``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from epcnet_torch.ops import _build
 from epcnet_torch.ops.adjacency import count_adjacency, neighbor_mean, pack_indicator
 from epcnet_torch.ops.pairwise import pairwise_sqdist
-
-
-# the tiled core's register list (knn_tile::kMaxK in csrc/knn_tile.cuh)
-TILED_MAX_K = 32
-
-
-def tiled_core(k: int) -> bool:
-    """Whether K2 and K3 select k neighbours on the tiled core (else on the
-    value rounds): the rule on k, the same for both kernels."""
-    return k <= TILED_MAX_K
 
 
 def _check_k(k: int, n: int) -> None:
@@ -84,19 +76,17 @@ def _cloud_batch(x: torch.Tensor, k: int, name: str) -> torch.Tensor:
 
 
 def _launch_ids(x, k, ids, dists, adj, split: int = 0) -> bool:
-    """One launch of ``csrc/knn_ids.cu`` on checked tensors: the tiled core
-    for k <= ``TILED_MAX_K`` (``split`` threads a row, 0 for the kernel's
-    own choice), else the value rounds. Returns True for the rounds."""
-    ptrs = (x.data_ptr(), x.shape[0], x.shape[1], k, ids.data_ptr(),
-            None if dists is None else dists.data_ptr(),
-            None if adj is None else adj.data_ptr())
+    """One launch of ``csrc/knn_ids.cu`` on checked tensors; the kernel picks
+    its core by k (``split``: the tiled core's threads a row, 0 for the
+    kernel's own choice). Returns True where the value rounds ran."""
+    tiled = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if tiled_core(k):
-            _build.launch("knn_ids", "knn_ids_launch", "piiipppip", *ptrs, split, stream)
-            return False
-        _build.launch("knn_ids", "knn_ids_rounds_launch", "piiipppp", *ptrs, stream)
-        return True
+        _build.launch("knn_ids", "knn_ids_launch", "piiipppipp", x.data_ptr(), x.shape[0],
+                      x.shape[1], k, ids.data_ptr(),
+                      None if dists is None else dists.data_ptr(),
+                      None if adj is None else adj.data_ptr(), split,
+                      ctypes.addressof(tiled), torch.cuda.current_stream().cuda_stream)
+    return not tiled.value
 
 
 def knn_cuda(x: torch.Tensor, k: int, return_dists: bool = False,
@@ -106,10 +96,11 @@ def knn_cuda(x: torch.Tensor, k: int, return_dists: bool = False,
     ``return_dists``, then the int8 indicator [B, N, N] if
     ``with_adjacency`` (a tuple when more than the ids are asked for).
 
-    k <= ``TILED_MAX_K`` (32) runs the tiled core, a larger k the value
-    rounds; both give the same ids and distances, checked on the card at
+    k <= 32 runs the tiled core, a larger k the value rounds (the kernel's
+    rule); both give the same ids and distances, checked on the card at
     k = 32 and 33. Each launch adds one to ``knn_cuda.launches``, and one
-    of the value rounds also to ``knn_cuda.launches_rounds``."""
+    the kernel reports as the value rounds also to
+    ``knn_cuda.launches_rounds``."""
     x = _cloud_batch(x, k, "K2")
     b, n, _ = x.shape
     ids = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
@@ -161,9 +152,10 @@ def knn_adjacency_plain(x: torch.Tensor, k: int, dtype=torch.bfloat16,
 
 
 def _launch_adj(x, k, dtype, with_proxy, pack, name, split: int = 0):
-    """One launch of ``csrc/knn_adj.cu``: K1 (pack=False) or K3, the latter
-    on the tiled core for k <= ``TILED_MAX_K`` (``split`` threads a row, 0
-    for the kernel's own choice). Returns (adj, proxy)."""
+    """One launch of ``csrc/knn_adj.cu``: K1 (pack=False) or K3; the kernel
+    picks its core (``split``: the tiled core's threads a row, 0 for the
+    kernel's own choice). Returns (adj, proxy, whether the value rounds
+    ran)."""
     x = _cloud_batch(x, k, name)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}'s proxy is bf16 or fp32, got {dtype}")
@@ -173,15 +165,13 @@ def _launch_adj(x, k, dtype, with_proxy, pack, name, split: int = 0):
     shape, adt = ((b, n, n // 32), torch.int32) if pack else ((b, n, n), torch.int8)
     adj = torch.empty(shape, dtype=adt, device=x.device)
     proxy = torch.empty((b, n, 3), dtype=dtype, device=x.device) if with_proxy else None
-    args = (x.data_ptr(), b, n, k, adj.data_ptr(), proxy.data_ptr() if with_proxy else None,
-            int(dtype == torch.bfloat16), 1.0 / k)
+    tiled = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if pack and tiled_core(k):
-            _build.launch("knn_adj", "knn_packed_launch", "piiippifip", *args, split, stream)
-        else:
-            _build.launch("knn_adj", "knn_adj_launch", "piiippifip", *args, int(pack), stream)
-    return adj, proxy
+        _build.launch("knn_adj", "knn_adj_launch", "piiippifiipp", x.data_ptr(), b, n, k,
+                      adj.data_ptr(), proxy.data_ptr() if with_proxy else None,
+                      int(dtype == torch.bfloat16), 1.0 / k, int(pack), split,
+                      ctypes.addressof(tiled), torch.cuda.current_stream().cuda_stream)
+    return adj, proxy, not tiled.value
 
 
 def knn_adjacency_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
@@ -191,12 +181,12 @@ def knn_adjacency_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
     card. Outputs are allocated here; the kernel allocates nothing and does
     not synchronise. Each launch adds one to ``knn_adjacency_cuda.launches``
     (with the proxy) or ``knn_adjacency_cuda.launches_no_proxy``."""
-    out = _launch_adj(x, k, dtype, with_proxy, False, "K1")
+    adj, proxy, _ = _launch_adj(x, k, dtype, with_proxy, False, "K1")
     if with_proxy:
         knn_adjacency_cuda.launches += 1
     else:
         knn_adjacency_cuda.launches_no_proxy += 1
-    return out
+    return adj, proxy
 
 
 knn_adjacency_cuda.launches = 0
@@ -207,14 +197,15 @@ def knn_packed_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
                     with_proxy: bool = True):
     """Launch K3 on ``torch.cuda.current_stream()``: the indicator as int32
     bit planes [B, N, N/32] (N % 32 == 0) and the proxy [B, N, 3], equal to
-    K1's. k <= ``TILED_MAX_K`` (32) runs the tiled core, a larger k K1's
-    value rounds with the packed write; both are checked on the card at
+    K1's. k <= 32 runs the tiled core, a larger k K1's value rounds with the
+    packed write (the kernel's rule); both are checked on the card at
     k = 32 and 33. Each launch adds one to ``knn_packed_cuda.launches``,
-    and one of the value rounds also to ``knn_packed_cuda.launches_rounds``."""
-    out = _launch_adj(x, k, dtype, with_proxy, True, "K3")
-    knn_packed_cuda.launches_rounds += not tiled_core(k)
+    and one the kernel reports as the value rounds also to
+    ``knn_packed_cuda.launches_rounds``."""
+    planes, proxy, rounds = _launch_adj(x, k, dtype, with_proxy, True, "K3")
+    knn_packed_cuda.launches_rounds += rounds
     knn_packed_cuda.launches += 1
-    return out
+    return planes, proxy
 
 
 knn_packed_cuda.launches = 0

@@ -23,6 +23,7 @@ from epcnet_torch.train.step import build_embed_fn
 
 pytestmark = pytest.mark.cuda
 BF16_ULP = 2.0 ** -7
+TILED_MAX_K = 32  # K2's and K3's tiled core: its register list (knn_tile.cuh)
 
 
 @pytest.fixture
@@ -102,7 +103,7 @@ def test_k2_matches_plain(cuda, b, n, k, grid):
     before = knn.knn_cuda.launches, knn.knn_cuda.launches_rounds
     ids, dists = knn.knn(x, k, return_dists=True)
     assert knn.knn_cuda.launches == before[0] + 1
-    assert knn.knn_cuda.launches_rounds == before[1] + (k > knn.TILED_MAX_K)
+    assert knn.knn_cuda.launches_rounds == before[1] + (k > TILED_MAX_K)
     ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
     assert ids.dtype == torch.int32 and dists.dtype == torch.float32
     assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p)
@@ -117,13 +118,25 @@ def test_tiled_core_splits_match_plain(cuda, split, n, k, grid):
     x = _cloud(n + split, 2, n, cuda, grid)
     ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
     ids, dists = torch.empty_like(ids_p), torch.empty_like(dists_p)
-    knn._launch_ids(x, k, ids, dists, None, split)
+    assert not knn._launch_ids(x, k, ids, dists, None, split)  # the tiled core ran
     assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p)
     xp = x[:, : n // 32 * 32].contiguous()
-    planes, proxy = knn._launch_adj(xp, k, torch.bfloat16, True, True, "K3", split)
+    planes, proxy, rounds = knn._launch_adj(xp, k, torch.bfloat16, True, True, "K3", split)
+    assert not rounds
     planes_w, proxy_w = knn.knn_packed_cuda(xp, k)
     assert torch.equal(planes, planes_w) and torch.equal(proxy, proxy_w)
     assert torch.equal(planes, knn.knn_adjacency_plain(xp, k, fmt="packed")[0])
+
+
+def test_forced_split_refused_above_the_register_list(cuda):
+    """k = 33 runs the value rounds, which take no S: a forced S raises."""
+    x = _cloud(7, 1, 256, cuda)
+    ids = torch.empty((1, 256, 33), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="knn_ids_launch"):
+        knn._launch_ids(x, 33, ids, None, None, 2)
+    with pytest.raises(RuntimeError, match="knn_adj_launch"):
+        knn._launch_adj(x, 33, torch.bfloat16, True, True, "K3", 2)
+    assert knn._launch_ids(x, 33, ids, None, None, 0)  # the rounds, by the rule
 
 
 def test_k2_indicator_matches_k1(cuda):
@@ -154,7 +167,7 @@ def test_k3_matches_plain(cuda, b, n, k, dtype, grid):
     before = knn.knn_packed_cuda.launches, knn.knn_packed_cuda.launches_rounds
     planes, proxy = knn.knn_adjacency(x, k, dt, fmt="packed")
     assert knn.knn_packed_cuda.launches == before[0] + 1
-    assert knn.knn_packed_cuda.launches_rounds == before[1] + (k > knn.TILED_MAX_K)
+    assert knn.knn_packed_cuda.launches_rounds == before[1] + (k > TILED_MAX_K)
     planes_p, proxy_p = knn.knn_adjacency_plain(x, k, dt, fmt="packed")
     assert planes.dtype == torch.int32 and planes.shape == (b, n, n // 32)
     assert torch.equal(planes, planes_p)

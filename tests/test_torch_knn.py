@@ -4,8 +4,6 @@ them on the CPU. ``knn`` (K2's plain version) against ``knn_jnp`` and
 ``knn_pallas``; ``knn_adjacency`` dense (K1's) and packed (K3's) against
 ``knn_adjacency(impl="jnp")`` and ``knn_with_adjacency_pallas``."""
 
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,26 +91,17 @@ def test_cpu_tensor_never_launches():
             launch(torch.zeros(1, 32, 3), 4)
 
 
-@pytest.mark.parametrize("k,tiled", [(1, True), (20, True), (32, True), (33, False),
-                                     (4096, False)])
-def test_k_rule_matches_the_kernel_source(k, tiled):
-    """K2 and K3 run on the tiled core up to its register list and on the
-    value rounds above it. The rule's size is the CUDA source's kMaxK, so a
-    wrapper never asks the tiled entry for a k it refuses."""
-    src = (Path(tknn.__file__).resolve().parent.parent / "csrc" / "knn_tile.cuh").read_text()
-    assert f"constexpr int kMaxK = {tknn.TILED_MAX_K};" in src
-    assert tknn.tiled_core(k) is tiled
-
-
 def _knn_cases():
     """[B, N, 3] clouds and k: random, the tie cases of tests/test_knn.py
     (:47 pairs of identical points, :94 every point identical), a coarse
-    grid (ties everywhere), k = N, and an N that is no tile multiple."""
+    grid (ties everywhere), k = N, an N that is no tile multiple, a cloud
+    stored along x (a scanner's order), and k one above the card's register
+    list of 32, where K2 moves from its tiled core to the value rounds."""
     rng = np.random.RandomState(31)
     pairs = np.zeros((1, 16, 3), np.float32)
     pairs[0, :, 0] = np.repeat(np.arange(8), 2)
     grid = np.round(rng.uniform(-1, 1, (2, 200, 3)) * 3).astype(np.float32) / 3
-    return {
+    cases = {
         "random": (rng.randn(2, 256, 3).astype(np.float32), 20),
         "pairs_tied": (pairs, 4),
         "all_identical": (np.ones((1, 40, 3), np.float32), 5),
@@ -120,6 +109,10 @@ def _knn_cases():
         "k_equals_n": (rng.randn(1, 32, 3).astype(np.float32), 32),
         "odd_n": (rng.randn(1, 130, 3).astype(np.float32), 6),
     }
+    xs = rng.randn(1, 300, 3).astype(np.float32)
+    cases["x_sorted"] = (xs[:, np.argsort(xs[0, :, 0], kind="stable")], 20)
+    cases["k_above_32"] = (rng.randn(1, 64, 3).astype(np.float32), 33)
+    return cases
 
 
 @pytest.mark.parametrize("block_rows", [1, 7, 1024])
