@@ -5,10 +5,10 @@
 
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
-``knn_phase.cu``, K6 ``knn_pipelined.cu``; K2 and K3 on the tiled core
-``knn_tile.cuh`` for k <= 32, whose ptxas report must show no spill), holds
-each against its plain PyTorch version on the card, builds the full-width
-EPC-Net
+``knn_phase.cu``, K6 ``knn_pipelined.cu``; K1, K2 and K3 on the tiled core
+``knn_tile.cuh`` for k <= 32; the ptxas report of every tiled kernel and of
+K4 must show no spill), holds each against its plain PyTorch version on the
+card, builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
 
@@ -71,6 +71,7 @@ ROUTE_TOL = 1e-3
 COUNTERS = {
     "K1": (knn.knn_adjacency_cuda, "launches"),
     "K1'": (knn.knn_adjacency_cuda, "launches_no_proxy"),
+    "K1 k>32": (knn.knn_adjacency_cuda, "launches_rounds"),
     "K2": (knn.knn_cuda, "launches"),
     "K2 k>32": (knn.knn_cuda, "launches_rounds"),
     "K3": (knn.knn_packed_cuda, "launches"),
@@ -135,16 +136,29 @@ def submaps(rng, count: int, n: int):
     return out
 
 
-def check_k1(x, k, dtype, with_proxy=True) -> float:
+def check_k1(x, k, dtype, with_proxy=True, splits=()) -> float:
     """K1 against its plain version on the same card tensors: the indicator
     exactly equal, the proxy within 1 bf16 ulp (bf16) or 1e-6 relative
-    (fp32). Returns the proxy's max abs difference."""
+    (fp32); the value rounds run only for k > 32; then with each of
+    ``splits`` threads a row forced on the tiled core, the indicator and the
+    proxy equal the wrapper's. Returns the proxy's max abs difference."""
+    rounds = knn.knn_adjacency_cuda.launches_rounds
     adj, proxy = knn.knn_adjacency_cuda(x, k, dtype, with_proxy)
+    assert knn.knn_adjacency_cuda.launches_rounds - rounds == (k > 32), (k, "core")
     adj_p, proxy_p = knn.knn_adjacency_plain(x, k, dtype, with_proxy)
     torch.cuda.synchronize()
+    shape = tuple(x.shape[:2])
     bad = int((adj != adj_p).sum())
-    assert bad == 0, f"K1 indicator differs in {bad} entries (B,N,k={tuple(x.shape[:2])},{k})"
+    assert bad == 0, f"K1 indicator differs in {bad} entries (B,N,k={shape},{k})"
     assert bool((adj.sum(-1, dtype=torch.int32) == k).all()), "rows without k ones"
+    for split in splits:
+        adj_s, proxy_s, ran_rounds = knn._launch_adj(x, k, dtype, with_proxy, False, "K1", split)
+        assert not ran_rounds, f"a forced S ran the value rounds (k={k})"
+        torch.cuda.synchronize()
+        assert torch.equal(adj_s, adj_p), f"K1 differs at S={split} (B,N,k={shape},{k})"
+        assert not with_proxy or torch.equal(proxy_s, proxy), f"K1 proxy differs at S={split}"
+        del adj_s
+    del adj, adj_p
     if not with_proxy:
         assert proxy is None
         return 0.0
@@ -297,14 +311,23 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
-    rebuilt = [src for src in ("knn_ids", "knn_adj") if src in reports]
-    tiled = {name: b for src in rebuilt
-             for name, b in spill_bytes(reports[src]).items() if "tiled_kernel" in name}
-    # each source's tiled kernel at S = 1, 2, 4 and 8: four reports a source
-    assert len(tiled) == 4 * len(rebuilt), f"ptxas reported {sorted(tiled)} for {rebuilt}"
-    assert all(b == 0 for b in tiled.values()), f"the tiled core spills: {tiled}"
-    log(f"phase build: the tiled core's {len(tiled)} kernels spill 0 bytes"
-        if rebuilt else "phase build: kernels were built before; no ptxas report")
+    # the kernels whose ptxas report must show no spill, by source: the
+    # tiled core's at S = 1, 2, 4, 8 and its two list sizes (K2; K1 and K3),
+    # and K4 for 2 x 2 dtypes and 4 channel widths
+    watched = {"knn_ids": ("tiled_kernel", 8), "knn_adj": ("tiled_kernel", 16),
+               "packed_mean": ("packed_mean_kernel", 16)}
+    spills = {}
+    for src, (part, count) in watched.items():
+        if src in reports:
+            got = {name: b for name, b in spill_bytes(reports[src]).items() if part in name}
+            assert len(got) == count, f"ptxas reported {sorted(got)} for {src}"
+            spills.update(got)
+    assert all(b == 0 for b in spills.values()), f"spills: {spills}"
+    dense = sum("dense_tiled" in name for name in spills)
+    assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
+    log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
+        "them K1's, and K4's)" if spills else
+        "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
     cfg = ModelConfig()  # N=4096, k=20, bf16
@@ -314,23 +337,34 @@ def main() -> int:
     def cloud(b, npts):
         return torch.tensor(rng.uniform(-1, 1, (b, npts, 3)).astype(np.float32), device=dev)
 
+    splits = (1, 2, 4, 8)
     with Phase("K1 check"):
         x8 = cloud(8, n)
         x32 = cloud(32, n)
-        err = check_k1(x8, k, bf16)
-        err = max(err, check_k1(x32, k, bf16))  # the serving batch
-        grid = torch.round(cloud(2, n) * 6) / 6  # coarse grid: ties everywhere
+        err = check_k1(x8, k, bf16, splits=splits)  # the trace's batch
+        err = max(err, check_k1(x32, k, bf16, splits=splits))  # the serving batch
+        grid = torch.round(cloud(2, n) * 6) / 6  # coarse grid: ties everywhere, across tiles
         grid[0, 40:61] = grid[0, 5]
-        check_k1(grid, k, bf16)
+        check_k1(grid, k, bf16, splits=splits)
         check_k1(grid, k, torch.float32)
-        check_k1(torch.ones(1, 1000, 3, device=dev), k, bf16)  # all identical
+        check_k1(x_sorted(cloud(32, n)), k, bf16, splits=splits)  # scan order
+        check_k1(torch.full((2, n, 3), 0.25, device=dev), k, bf16, splits=splits)  # identical
+        check_k1(torch.ones(1, 1000, 3, device=dev), k, bf16)  # all identical, one tile
+        check_k1(cloud(2, 1025), k, bf16, splits=splits)  # one point past a tile
+        check_k1(cloud(2, 4097), k, bf16, splits=splits)  # one past the serving N
         check_k1(cloud(3, 1000), k, bf16)  # odd N
         check_k1(cloud(2, 1001), 7, torch.float32)
         check_k1(cloud(2, 33), 33, bf16)  # k = N
         check_k1(cloud(1, 1), 1, bf16)
         check_k1(cloud(2, 517), 20, bf16, with_proxy=False)
-        check_k1(cloud(1, 20000), k, bf16)  # xyz read from global memory
-    log(f"phase K1 check: ok (indicator exact on 11 cases; proxy max abs err {err})")
+        check_k1(x_sorted(cloud(2, n)), k, bf16, with_proxy=False, splits=splits)
+        check_k1(cloud(1, 20000), k, bf16)  # 20 tiles, the last one partial
+        check_k1(cloud(2, n), 32, bf16, splits=splits)  # the register limit
+        x33 = cloud(2, n)  # k one above the register list: the value rounds
+        err_k1_r = check_k1(x33, 33, bf16)
+    log(f"phase K1 check: ok (indicator exact on 18 cases, 9 of them also at S = 1, 2, 4 "
+        f"and 8; the value rounds at k=33 alone; proxy max abs err {err}, {err_k1_r} at "
+        "k=33)")
 
     # -- 3. K2 against its plain version -----------------------------------
     # the capacity routes' clouds: 16 submaps at N=32768, 8 at N=65536
@@ -347,14 +381,12 @@ def main() -> int:
         check_k2(grid, k, with_adjacency=True)
         check_k2(cloud(2, n), k, with_adjacency=True)
         # the tiled core, also at every split S of a row's columns
-        splits = (1, 2, 4, 8)
         check_k2(cloud(1, 1024), k, splits=splits)  # one tile exactly
         check_k2(cloud(1, 1025), k, splits=splits)  # one point past it
         check_k2(torch.round(cloud(1, 65536) * 6) / 6, k, splits=splits)  # ties across tiles
         check_k2(torch.full((1, 40000, 3), 0.25, device=dev), k, splits=splits)  # identical
         check_k2(x_sorted(cloud(1, 65536)), k, splits=splits)  # scan order: insertions
         check_k2(cloud(2, n), 32, with_adjacency=True, splits=splits)  # the register limit
-        x33 = cloud(2, n)  # k one above the register list: the value rounds
         err_k2_r = check_k2(x33, 33, with_adjacency=True)
     log("phase K2 check: ok (ids and distances exact on 16 cases up to N=131072, the "
         "tiled core's 7 new ones at S = 1, 2, 4 and 8 too; indicator exact at N=4096, "
@@ -394,9 +426,23 @@ def main() -> int:
         err_rand = check_k4(f64, sparse, k, bf16)
         check_k4(f64.float(), sparse, k, torch.float32)
         del sparse
+        # K3's planes edited: rows with no set bit, a word with all 32 planes
+        # set, and rows with more than 32 non-zero words (a warp's ballot)
+        edited = planes.clone()
+        edited[:, :100] = 0
+        edited[:, 100:200, 5] = -1
+        edited[:, 200:300, :40] |= 1 << 30
+        err_edit = check_k4(f64, edited, k, bf16)
+        check_k4(f64.float(), edited, k, torch.float32)
+        del edited
+        full = torch.full((2, 1024, 32), -1, dtype=torch.int32, device=dev)  # every bit set
+        check_k4(f64[:, :1024], full, k, bf16)
+        check_k4(f64[:, :1024].float(), full, k, torch.float32)
         torch.cuda.empty_cache()
     log(f"phase K4 check: ok (max abs err {err_k4} on K3's planes, {err_rand} on a "
-        "1/16-dense mask; fp32 within 1e-6 of mean |F|)")
+        f"1/16-dense mask, {err_edit} on K3's planes with empty rows, full words and rows "
+        "of 40 non-zero words, and a fully dense mask at N=1024; fp32 within 1e-6 of mean "
+        "|F|)")
 
     # -- 5b. K5 and K6 against their plain versions ------------------------
     with Phase("K5/K6 check"):
@@ -500,6 +546,7 @@ def main() -> int:
                 f"{ix.metrics()['queries']} queries, scheduler avg batch {m['avg_batch']:.2f}")
         dense_counts = read_counts()
     assert dense_counts["K1"] >= 1, "the serving path never launched K1"
+    assert dense_counts["K1 k>32"] == 0, dense_counts  # k=20: every K1 ran tiled
     log(f"phase serve: {requests} requests answered; launches {dense_counts}")
 
     # -- 10. serving on the capacity routes, launch counts zeroed ----------
@@ -534,6 +581,7 @@ def main() -> int:
         assert trace["pipelined"]["adj_exact"], trace["pipelined"]
         assert trace["pipelined"]["proxy_within_1e-6_rel"], trace["pipelined"]
         assert trace["trace"]["ranked_by"] == "device", trace["trace"]["ranked_by"]
+        assert trace["phase_cores"]["D (K1)"] == "tiled", trace["phase_cores"]
         assert all(trace_counts[name] >= 1 for name in ("K1", "K5", "K6")), trace_counts
         # the model's kNN span holds K1 alone: its device time a forward is
         # phase D's, which the span attribution (region_ms) must reproduce
@@ -584,6 +632,15 @@ def main() -> int:
         ms8 = cuda_ms(lambda: knn.knn_adjacency_cuda(x8, k, bf16), 20)
         plain8 = cuda_ms(lambda: knn.knn_adjacency_plain(x8, k, bf16), 3)
         b8 = bound(xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 2, 8 * 8 * n * n)
+        # the tiled core under K1 at each split S (0: the kernel's choice)
+        k1_splits = {f"k1_b{xx.shape[0]}_n4096": {
+            s_: cuda_ms(lambda: knn._launch_adj(xx, k, bf16, True, False, "K1", s_), 20)
+            for s_ in (0, 1, 2, 4, 8)} for xx in (x32, x8)}
+        # k above the register list: the value rounds, on the checked x33
+        entry("knn_adj (k > 32)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:68",
+              dense_counts["K1 k>32"], err_k1_r, cuda_ms(lambda: knn.knn_adjacency_cuda(
+                  x33, 33, bf16), 5), cuda_ms(lambda: knn.knn_adjacency_plain(x33, 33, bf16), 3),
+              xyz_bytes(x33) + 2 * n * n + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], k=33)
 
         # K2: the gather route's shape, B=1, N=65536, ids alone
         x64 = torch.tensor(sub64k[:1], device=dev)
@@ -696,7 +753,7 @@ def main() -> int:
     log(json.dumps({"k2_n131072": {"ms": ms_k2_131, "bound_ms": b131[0],
                                    "bound_by": b131[1], "shape": [1, 131072, 3], "k": k}}))
     log(json.dumps({"tiled_splits": {"k2_b1_n65536": k2_splits, "k3_b2_n32768": k3_splits,
-                                     "k2_b1_n4096": k2_splits_n4096, "k": k}}))
+                                     "k2_b1_n4096": k2_splits_n4096, **k1_splits, "k": k}}))
     log(json.dumps({"tiled_b32_n4096": tiled_b32}))
     log(json.dumps({"routes": route_ms}))
     log(json.dumps({"serve": {"embed_batch32_ms": embed_ms,

@@ -20,10 +20,11 @@
 //
 // Two kernels; knn_ids_launch picks one by k, the one place the rule lives:
 //   k <= knn_tile::kMaxK (32; the model's k is 20): knn_tile.cuh's tiled
-//     core. A block's merged lists lie in shared memory as [rows][k], which
-//     is the layout of the block's stretch of ids and dists, so every thread
-//     stores a contiguous, coalesced run. The indicator rows are zeroed with
-//     16-byte stores, then the k ones of each row are set.
+//     core (its shorter list for k <= knn_tile::kShortK). A block's merged
+//     lists lie in shared memory as [rows][k], which is the layout of the
+//     block's stretch of ids and dists, so every thread stores a contiguous,
+//     coalesced run. The indicator rows are zeroed with 16-byte stores, then
+//     the k ones of each row are set.
 //   k > kMaxK: knn_core.cuh's warp-per-row value rounds (the round r yields
 //     rank r; lane r % 32 keeps it and the warp stores 32 ranks at once).
 // Every index into an output is 64-bit.
@@ -36,7 +37,7 @@ namespace {
 using namespace knn_core;
 namespace kt = knn_tile;
 
-template <int S>
+template <int S, int L>
 __global__ void __launch_bounds__(kt::kThreads, 2)
     knn_ids_tiled_kernel(const float* __restrict__ x, int n, int k,
                          int32_t* __restrict__ ids, float* __restrict__ dists,
@@ -46,7 +47,7 @@ __global__ void __launch_bounds__(kt::kThreads, 2)
   const int row0 = blockIdx.x * kt::rows_per_block(S);
   float* od;
   int* oj;
-  kt::select_rows<S>(x + static_cast<size_t>(b) * n * 3, n, k, row0, smem, od, oj);
+  kt::select_rows<S, L>(x + static_cast<size_t>(b) * n * 3, n, k, row0, smem, od, oj);
 
   const int rows = min(kt::rows_per_block(S), n - row0);
   const size_t e0 = (static_cast<size_t>(b) * n + row0) * k;
@@ -63,16 +64,16 @@ __global__ void __launch_bounds__(kt::kThreads, 2)
   }
 }
 
-template <int S>
+template <int S, int L>
 cudaError_t launch_tiled(const float* x, int b, int n, int k, int32_t* ids, float* dists,
                          int8_t* adj, cudaStream_t stream) {
   const size_t smem = kt::smem_bytes(S, k);
   cudaError_t err = cudaFuncSetAttribute(
-      knn_ids_tiled_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      knn_ids_tiled_kernel<S, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kt::rows_per_block(S) - 1) / kt::rows_per_block(S), b);
-  knn_ids_tiled_kernel<S><<<grid, kt::kThreads, smem, stream>>>(x, n, k, ids, dists, adj);
+  knn_ids_tiled_kernel<S, L><<<grid, kt::kThreads, smem, stream>>>(x, n, k, ids, dists, adj);
   return cudaGetLastError();
 }
 
@@ -169,11 +170,8 @@ extern "C" int knn_ids_launch(const float* x, int b, int n, int k, int32_t* ids,
     if (plan.in_smem) return launch_rounds<true, false>(x, b, n, k, ids, dists, adj, plan, s);
     return launch_rounds<false, false>(x, b, n, k, ids, dists, adj, plan, s);
   }
-  switch (kt::launch_split(split, b, n)) {
-    case 1: return launch_tiled<1>(x, b, n, k, ids, dists, adj, s);
-    case 2: return launch_tiled<2>(x, b, n, k, ids, dists, adj, s);
-    case 4: return launch_tiled<4>(x, b, n, k, ids, dists, adj, s);
-    case 8: return launch_tiled<8>(x, b, n, k, ids, dists, adj, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return kt::dispatch(split, b, n, k, [&](auto sp, auto len) {
+    return launch_tiled<decltype(sp)::value, decltype(len)::value>(x, b, n, k, ids, dists,
+                                                                  adj, s);
+  });
 }

@@ -1,4 +1,4 @@
-// The tiled selection core of K2 and K3 (knn_ids.cu, knn_adj.cu with pack):
+// The tiled selection core of K1, K2 and K3 (knn_adj.cu, knn_ids.cu):
 // exact (distance, index) kNN for k <= kMaxK, built for Hopper.
 //
 // Per cloud b and query row i (N points, 1 <= k <= min(N, kMaxK)), the same
@@ -21,8 +21,9 @@
 // bytes a row.
 //
 // Each thread keeps its running top-k, sorted, in two register arrays of the
-// compile-time size kMaxK: the first kMaxK - k slots hold (-inf, -1) and never
-// move, so the k-th entry is always slot kMaxK - 1 and no index is dynamic.
+// compile-time size L (kMaxK, or kShortK where k allows: each insertion
+// shifts L slots): the first L - k slots hold (-inf, -1) and never move, so
+// the k-th entry is always slot L - 1 and no index is dynamic.
 // A column is rejected by one compare with a threshold register; one that
 // passes goes into the thread's queue in shared memory (kQueue slots), and
 // every kGroup columns, when some lane's queue could overflow, the warp
@@ -44,6 +45,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "knn_core.cuh"
 
 namespace knn_tile {
@@ -52,7 +55,8 @@ using knn_core::lex_less;
 
 constexpr int kThreads = 256;  // a block
 constexpr int kTile = 1024;    // points a tile (12 KB as three planes)
-constexpr int kMaxK = 32;      // register list size: k <= kMaxK
+constexpr int kMaxK = 32;      // the register list's size: k <= kMaxK
+constexpr int kShortK = 24;    // the shorter list, for k <= kShortK
 constexpr int kQueue = 16;     // queued candidates a thread
 constexpr int kGroup = 8;      // columns a thread between flush checks
 
@@ -108,10 +112,11 @@ __device__ __forceinline__ float sqdist_tile(float qx, float qy, float qz, const
   return __fadd_rn(d, __fmul_rn(dz, dz));
 }
 
-// Put (d, j) into the sorted list; the caller checked d < ld[kMaxK - 1].
-__device__ __forceinline__ void insert(float (&ld)[kMaxK], int (&lj)[kMaxK], float d, int j) {
+// Put (d, j) into the sorted list; the caller checked d < ld[L - 1].
+template <int L>
+__device__ __forceinline__ void insert(float (&ld)[L], int (&lj)[L], float d, int j) {
 #pragma unroll
-  for (int i = kMaxK - 1; i > 0; --i) {
+  for (int i = L - 1; i > 0; --i) {
     const bool shift = d < ld[i - 1];
     const bool put = !shift && d < ld[i];
     ld[i] = shift ? ld[i - 1] : (put ? d : ld[i]);
@@ -126,17 +131,19 @@ __device__ __forceinline__ void insert(float (&ld)[kMaxK], int (&lj)[kMaxK], flo
 // A thread's selection state: the sorted list, the threshold a column must
 // be below to be queued, the cap (+inf, or just above the own tile's k-th
 // distance), and the queue (slot i of thread t at qd[i * kThreads + t]).
+template <int L>
 struct Sel {
-  float ld[kMaxK];
-  int lj[kMaxK];
+  float ld[L];
+  int lj[L];
   float thr, cap;
   int qn;
 };
 
-__device__ __forceinline__ void reset(Sel& s, int k) {
+template <int L>
+__device__ __forceinline__ void reset(Sel<L>& s, int k) {
 #pragma unroll
-  for (int i = 0; i < kMaxK; ++i) {
-    const bool fixed = i < kMaxK - k;
+  for (int i = 0; i < L; ++i) {
+    const bool fixed = i < L - k;
     s.ld[i] = fixed ? -__int_as_float(0x7f800000) : __int_as_float(0x7f800000);
     s.lj[i] = fixed ? -1 : INT_MAX;
   }
@@ -145,21 +152,22 @@ __device__ __forceinline__ void reset(Sel& s, int k) {
 }
 
 // Insert this thread's queue, in order, into its list.
-__device__ __forceinline__ void flush(Sel& s, const float* qd, const int* qj) {
+template <int L>
+__device__ __forceinline__ void flush(Sel<L>& s, const float* qd, const int* qj) {
   for (int i = 0; i < s.qn; ++i) {
     const float d = qd[i * kThreads + threadIdx.x];
-    if (d < s.ld[kMaxK - 1]) insert(s.ld, s.lj, d, qj[i * kThreads + threadIdx.x]);
+    if (d < s.ld[L - 1]) insert(s.ld, s.lj, d, qj[i * kThreads + threadIdx.x]);
   }
   s.qn = 0;
-  s.thr = fminf(s.ld[kMaxK - 1], s.cap);
+  s.thr = fminf(s.ld[L - 1], s.cap);
 }
 
 // Queue this thread's columns base + m (m = part, part + S, ... < cnt) of
 // the tile that pass the threshold. Every lane of the warp runs the same
 // iterations (the flush check is a warp vote); kWhole: cnt == kTile. One
 // compare of the group's least distance rejects a whole group.
-template <int S, bool kWhole>
-__device__ __forceinline__ void scan_tile(Sel& s, float* qd, int* qj, const float* tile,
+template <int S, int L, bool kWhole>
+__device__ __forceinline__ void scan_tile(Sel<L>& s, float* qd, int* qj, const float* tile,
                                           int base, int cnt, int part, float qx, float qy,
                                           float qz) {
   const int end = kWhole ? kTile : cnt;
@@ -195,20 +203,21 @@ __device__ __forceinline__ void scan_tile(Sel& s, float* qd, int* qj, const floa
   }
 }
 
-template <int S>
-__device__ __forceinline__ void scan_any(Sel& s, float* qd, int* qj, const float* tile,
+template <int S, int L>
+__device__ __forceinline__ void scan_any(Sel<L>& s, float* qd, int* qj, const float* tile,
                                          int base, int n, int part, float qx, float qy,
                                          float qz) {
   const int cnt = n - base < kTile ? n - base : kTile;
-  if (cnt == kTile) scan_tile<S, true>(s, qd, qj, tile, base, cnt, part, qx, qy, qz);
-  else scan_tile<S, false>(s, qd, qj, tile, base, cnt, part, qx, qy, qz);
+  if (cnt == kTile) scan_tile<S, L, true>(s, qd, qj, tile, base, cnt, part, qx, qy, qz);
+  else scan_tile<S, L, false>(s, qd, qj, tile, base, cnt, part, qx, qy, qz);
 }
 
 // The k winners of rows row0 .. row0 + kThreads / S - 1 of cloud xb [n, 3]
-// (rows past n are computed for the warp votes and then dropped). Every
-// thread of the block calls it. On return (after a barrier) od/oj point at
-// the merged lists in shared memory, [rows][k], rank order.
-template <int S>
+// (rows past n are computed for the warp votes and then dropped), on lists
+// of L >= k slots. Every thread of the block calls it. On return (after a
+// barrier) od/oj point at the merged lists in shared memory, [rows][k],
+// rank order.
+template <int S, int L>
 __device__ __forceinline__ void select_rows(const float* __restrict__ xb, int n, int k,
                                             int row0, unsigned char* smem, float*& od,
                                             int*& oj) {
@@ -224,7 +233,7 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ xb, int n,
     qy = __ldg(xb + 3 * row + 1);
     qz = __ldg(xb + 3 * row + 2);
   }
-  Sel s;
+  Sel<L> s;
   s.cap = __int_as_float(0x7f800000);
   reset(s, k);
 
@@ -234,9 +243,9 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ xb, int n,
     stage_tile(tiles, xb + 3 * static_cast<size_t>(own), n - own < kTile ? n - own : kTile);
     cp_async_wait<0>();
     __syncthreads();
-    scan_any<S>(s, qd, qj, tiles, own, n, part, qx, qy, qz);
+    scan_any<S, L>(s, qd, qj, tiles, own, n, part, qx, qy, qz);
     flush(s, qd, qj);
-    s.cap = nextafterf(s.ld[kMaxK - 1], __int_as_float(0x7f800000));
+    s.cap = nextafterf(s.ld[L - 1], __int_as_float(0x7f800000));
     reset(s, k);
     __syncthreads();  // the own tile is read: tile 0 goes into its buffer
   }
@@ -252,18 +261,18 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ xb, int n,
       cp_async_wait<0>();
     }
     __syncthreads();  // everyone's copies of tile t have landed
-    scan_any<S>(s, qd, qj, tiles + (t & 1) * 3 * kTile, base, n, part, qx, qy, qz);
+    scan_any<S, L>(s, qd, qj, tiles + (t & 1) * 3 * kTile, base, n, part, qx, qy, qz);
     __syncthreads();  // tile t is read: the next iteration refills its buffer
   }
   flush(s, qd, qj);
   __syncthreads();  // every queue is drained: the lists overwrite them
 
   // each thread's list, its k real slots: [kThreads][k]
-  const int off = kMaxK - k;
+  const int off = L - k;
   float* ls_d = reinterpret_cast<float*>(smem);
   int* ls_j = reinterpret_cast<int*>(smem + static_cast<size_t>(kThreads) * k * 4);
 #pragma unroll
-  for (int i = 0; i < kMaxK; ++i) {
+  for (int i = 0; i < L; ++i) {
     if (i >= off) {
       ls_d[tid * k + i - off] = s.ld[i];
       ls_j[tid * k + i - off] = s.lj[i];
@@ -340,6 +349,25 @@ inline int launch_split(int split, int b, int n) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return choose_split(b, n, sms);
+}
+
+// launch(S, L) with S from launch_split and the list size L that k needs:
+// kShortK for k <= kShortK, else kMaxK (each an integral_constant), for the
+// C entries, which hold the rest of the rule. An S not in {1, 2, 4, 8} is
+// refused.
+template <class Launch>
+inline cudaError_t dispatch(int split, int b, int n, int k, Launch&& launch) {
+  auto by_list = [&](auto s) {
+    if (k <= kShortK) return launch(s, std::integral_constant<int, kShortK>());
+    return launch(s, std::integral_constant<int, kMaxK>());
+  };
+  switch (launch_split(split, b, n)) {
+    case 1: return by_list(std::integral_constant<int, 1>());
+    case 2: return by_list(std::integral_constant<int, 2>());
+    case 4: return by_list(std::integral_constant<int, 4>());
+    case 8: return by_list(std::integral_constant<int, 8>());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace knn_tile

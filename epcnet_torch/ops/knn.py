@@ -10,10 +10,10 @@
   K3); both kernels are in ``csrc/knn_adj.cu``. A CPU tensor takes the plain
   version beside each kernel.
 
-K2 and K3 run on the tiled selection core (``csrc/knn_tile.cuh``: a block
-of query rows streams the cloud through shared memory, each thread keeps a
-register top-k) for k up to its register list (32), and on the warp-per-row
-value rounds of ``csrc/knn_core.cuh`` (K1's core) above it: a rule on k
+K1, K2 and K3 run on the tiled selection core (``csrc/knn_tile.cuh``: a
+block of query rows streams the cloud through shared memory, each thread
+keeps a register top-k) for k up to its register list (32), and on the
+warp-per-row value rounds of ``csrc/knn_core.cuh`` above it: a rule on k
 that each kernel's C entry applies and reports, never a fallback. There is
 no fallback from a kernel to its plain version either. Order everywhere:
 ascending fp32 distance, then ascending index — the order of
@@ -153,9 +153,9 @@ def knn_adjacency_plain(x: torch.Tensor, k: int, dtype=torch.bfloat16,
 
 def _launch_adj(x, k, dtype, with_proxy, pack, name, split: int = 0):
     """One launch of ``csrc/knn_adj.cu``: K1 (pack=False) or K3; the kernel
-    picks its core (``split``: the tiled core's threads a row, 0 for the
-    kernel's own choice). Returns (adj, proxy, whether the value rounds
-    ran)."""
+    picks its core (``split``: the tiled core's threads a row for either
+    form, 0 for the kernel's own choice). Returns (adj, proxy, whether the
+    value rounds ran)."""
     x = _cloud_batch(x, k, name)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}'s proxy is bf16 or fp32, got {dtype}")
@@ -179,9 +179,14 @@ def knn_adjacency_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
     """Launch K1 on ``torch.cuda.current_stream()``: the int8 indicator
     [B, N, N] and the proxy [B, N, 3] (K1′ without it). x: [B, N, 3] on the
     card. Outputs are allocated here; the kernel allocates nothing and does
-    not synchronise. Each launch adds one to ``knn_adjacency_cuda.launches``
-    (with the proxy) or ``knn_adjacency_cuda.launches_no_proxy``."""
-    adj, proxy, _ = _launch_adj(x, k, dtype, with_proxy, False, "K1")
+    not synchronise. k <= 32 runs the tiled core, a larger k the value
+    rounds (the kernel's rule); both are checked on the card at k = 32 and
+    33. Each launch adds one to ``knn_adjacency_cuda.launches`` (with the
+    proxy) or ``knn_adjacency_cuda.launches_no_proxy``, and one the kernel
+    reports as the value rounds also to
+    ``knn_adjacency_cuda.launches_rounds``."""
+    adj, proxy, rounds = _launch_adj(x, k, dtype, with_proxy, False, "K1")
+    knn_adjacency_cuda.launches_rounds += rounds
     if with_proxy:
         knn_adjacency_cuda.launches += 1
     else:
@@ -191,13 +196,14 @@ def knn_adjacency_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
 
 knn_adjacency_cuda.launches = 0
 knn_adjacency_cuda.launches_no_proxy = 0
+knn_adjacency_cuda.launches_rounds = 0
 
 
 def knn_packed_cuda(x: torch.Tensor, k: int, dtype=torch.bfloat16,
                     with_proxy: bool = True):
     """Launch K3 on ``torch.cuda.current_stream()``: the indicator as int32
     bit planes [B, N, N/32] (N % 32 == 0) and the proxy [B, N, 3], equal to
-    K1's. k <= 32 runs the tiled core, a larger k K1's value rounds with the
+    K1's. k <= 32 runs the tiled core, a larger k the value rounds with the
     packed write (the kernel's rule); both are checked on the card at
     k = 32 and 33. Each launch adds one to ``knn_packed_cuda.launches``,
     and one the kernel reports as the value rounds also to

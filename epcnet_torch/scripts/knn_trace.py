@@ -22,8 +22,12 @@ Three measurements, in one process, on B seeded uniform clouds:
      D_full_shipped    K1 (``knn_adjacency``)    selection_tail_write_proxy = D - C
 
    The JAX script calls the last share ``trim_adjwrite_proxy``. K1 on the
-   card has no trim: past the phases of K5 it runs its k (d, j) rounds,
-   writes the indicator and walks the proxy, hence the other name.
+   card has no trim, hence the other name. Phases A-C measure the value
+   rounds (``csrc/knn_core.cuh``), which K1 runs only for k > 32; at the
+   model's k = 20 phase D, the shipped K1, runs the tiled core
+   (``csrc/knn_tile.cuh``), so D - C is then the difference of two cores,
+   not a tail of one. ``phase_cores`` says which core each phase ran (D's
+   as K1 reported it; "plain" on the CPU).
 3. K6 (``csrc/knn_pipelined.cu``) against K1. K6's indicator must equal K1's
    and its fp32 proxy its plain version's within 1e-6 relative; then both
    are timed, in turns. ``verdict`` is "faster" if K6 is exact and under
@@ -48,7 +52,7 @@ import torch
 
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.device import resolve_device
-from epcnet_torch.ops.knn import knn_adjacency
+from epcnet_torch.ops.knn import knn_adjacency, knn_adjacency_cuda
 from epcnet_torch.ops.knn_phases import (
     knn_adjacency_pipelined,
     knn_adjacency_pipelined_plain,
@@ -111,10 +115,16 @@ def phase_ablation(x: torch.Tensor, k: int) -> dict:
         "C_plus_threshold": lambda: knn_phase(x, k, thresh=True),
         "D_full_shipped": lambda: knn_adjacency(x, k, torch.bfloat16),
     }
+    rounds = knn_adjacency_cuda.launches_rounds
     ms = {name: time_ms(fn, reps) for name, fn in phases.items()}
+    on_card = x.device.type == "cuda"
+    d_core = ("plain" if not on_card else
+              "value rounds" if knn_adjacency_cuda.launches_rounds > rounds else "tiled")
     return {
         "batch": b, "n": n, "k": k, "reps": reps,
         "phase_ms_per_batch": ms,
+        "phase_cores": {"A-C (K5)": "value rounds" if on_card else "plain",
+                        "D (K1)": d_core},
         "attribution_ms": {
             "slab_plus_fixed": ms["A_slab_1round"],
             "value_rounds": ms["B_slab_krounds"] - ms["A_slab_1round"],
@@ -189,6 +199,7 @@ def main(argv: list[str] | None = None) -> dict:
     out["reps"] = ablation["reps"]
     out["phase_ms_per_batch"] = ablation["phase_ms_per_batch"]
     out["attribution_ms"] = ablation["attribution_ms"]
+    out["phase_cores"] = ablation["phase_cores"]
     out["pipelined"] = pipelined_vs_k1(x, args.k)
 
     os.makedirs(out_dir, exist_ok=True)

@@ -23,7 +23,7 @@ from epcnet_torch.train.step import build_embed_fn
 
 pytestmark = pytest.mark.cuda
 BF16_ULP = 2.0 ** -7
-TILED_MAX_K = 32  # K2's and K3's tiled core: its register list (knn_tile.cuh)
+TILED_MAX_K = 32  # the tiled core of K1-K3: its register list (knn_tile.cuh)
 
 
 @pytest.fixture
@@ -61,14 +61,22 @@ def _assert_proxy_close(got, want, dt):
     (2, 4096, 20, "bfloat16", 6),
     (2, 1000, 7, "float32", 4),
     (3, 333, 20, "bfloat16", None),
-    (1, 20000, 20, "bfloat16", None),  # xyz read from global memory
+    (1, 20000, 20, "bfloat16", None),  # 20 tiles, the last one partial
+    (2, 4096, 32, "bfloat16", None),  # k at the register list's size
+    (2, 4096, 33, "bfloat16", None),  # one above: the value rounds
+    (2, 4096, 20, "bfloat16", "xsorted"),  # scan order
+    (1, 8192, 20, "float32", 6),  # ties across tiles
+    (2, 4096, 20, "bfloat16", "same"),  # all points identical
+    (2, 1025, 20, "bfloat16", None),  # one point past a tile, N % 16 != 0
+    (1, 4097, 20, "float32", None),  # one past the serving N
 ])
 def test_k1_matches_plain(cuda, b, n, k, dtype, grid):
     x = _cloud(n + k, b, n, cuda, grid)
     dt = getattr(torch, dtype)
-    before = knn.knn_adjacency_cuda.launches
+    before = knn.knn_adjacency_cuda.launches, knn.knn_adjacency_cuda.launches_rounds
     adj, proxy = knn.knn_adjacency(x, k, dt)
-    assert knn.knn_adjacency_cuda.launches == before + 1
+    assert knn.knn_adjacency_cuda.launches == before[0] + 1
+    assert knn.knn_adjacency_cuda.launches_rounds == before[1] + (k > TILED_MAX_K)
     adj_p, proxy_p = knn.knn_adjacency_plain(x, k, dt)
     assert adj.dtype == torch.int8 and proxy.dtype == dt
     assert torch.equal(adj, adj_p)
@@ -114,12 +122,18 @@ def test_k2_matches_plain(cuda, b, n, k, grid):
 @pytest.mark.parametrize("n,k,grid", [(1025, 20, None), (4096, 32, 6), (8192, 20, "xsorted")])
 def test_tiled_core_splits_match_plain(cuda, split, n, k, grid):
     """The tiled core with a row's columns over S threads, S forced: K2's
-    ids and distances and K3's planes and proxy as with the wrapper's S."""
+    ids and distances, K1's indicator and proxy, and K3's planes and proxy
+    as with the wrapper's S."""
     x = _cloud(n + split, 2, n, cuda, grid)
     ids_p, dists_p = knn.knn_plain(x, k, return_dists=True)
     ids, dists = torch.empty_like(ids_p), torch.empty_like(dists_p)
     assert not knn._launch_ids(x, k, ids, dists, None, split)  # the tiled core ran
     assert torch.equal(ids, ids_p) and torch.equal(dists, dists_p)
+    adj, proxy, rounds = knn._launch_adj(x, k, torch.bfloat16, True, False, "K1", split)
+    assert not rounds
+    adj_w, proxy_w = knn.knn_adjacency_cuda(x, k)
+    assert torch.equal(adj, adj_w) and torch.equal(proxy, proxy_w)
+    assert torch.equal(adj, knn.knn_adjacency_plain(x, k, with_proxy=False)[0])
     xp = x[:, : n // 32 * 32].contiguous()
     planes, proxy, rounds = knn._launch_adj(xp, k, torch.bfloat16, True, True, "K3", split)
     assert not rounds
@@ -198,12 +212,22 @@ def _k4_check(f, planes, k, dt):
     (1, 1024, 300, 0.05, "bfloat16", "bfloat16"),  # channels in two blocks
     (2, 256, 16, 0.5, "bfloat16", "float32"),  # bf16 features, fp32 compute
     (1, 96, 3, 0.1, "float32", "bfloat16"),  # W=3 words, fewer than a warp
+    (2, 4096, 64, "edited", "bfloat16", "bfloat16"),  # K3's planes, edited
+    (2, 4096, 48, "edited", "float32", "float32"),
+    (2, 512, 64, 1.0, "bfloat16", "bfloat16"),  # every bit set
+    (1, 1024, 3, 1.0, "float32", "float32"),
 ])
 def test_k4_matches_plain(cuda, b, n, c, density, fdtype, dtype):
+    """"edited": K3's planes with rows that hold no bit, a word with all 32
+    planes set, and rows with more than 32 non-zero words."""
     rng = np.random.default_rng(n + c)
     k = 20
-    if density is None:
+    if density in (None, "edited"):
         planes, _ = knn.knn_adjacency(_cloud(n, b, n, cuda), k, fmt="packed")
+        if density == "edited":
+            planes[:, :50] = 0
+            planes[:, 50:100, 3] = -1
+            planes[:, 100:150, :40] |= 1 << 30
     else:
         mask = torch.tensor(rng.uniform(size=(b, n, n)) < density, device=cuda)
         mask[:, :, -1] = True  # a column of plane 31

@@ -143,6 +143,7 @@ def test_knn_trace_script_on_cpu(tmp_path):
                             "threshold_count", "value_rounds"]
     assert attr["slab_plus_fixed"] + attr["value_rounds"] + attr["threshold_count"] \
         + attr["selection_tail_write_proxy"] == pytest.approx(phases["D_full_shipped"])
+    assert res["phase_cores"] == {"A-C (K5)": "plain", "D (K1)": "plain"}
     pipe = res["pipelined"]
     assert pipe["adj_exact"] and pipe["proxy_within_1e-6_rel"]
     assert pipe["verdict"] in ("faster", "rejected")

@@ -204,23 +204,37 @@ def test_pack_unpack_indicator_match():
 
 
 def _packed_case(seed, k, n, c, density):
-    """Planes of a kNN graph (density None) or of a random mask, and features."""
+    """Planes of a kNN graph (density None; "empty_rows": every third row
+    cleared) or of a random mask, and features. Past 5% density every row
+    holds a column of plane 31, and the features lie on a grid of 1/64 in
+    [-4, 4], so that any order of a row's fp32 sum (128 terms at half
+    density) is exact and the stated tolerance still measures the walk."""
     rng = np.random.RandomState(seed)
-    if density is None:
+    if density in (None, "empty_rows"):
         ind = np.asarray(jadj.count_adjacency(
             knn_jnp(jnp.asarray(rng.randn(2, n, 3).astype(np.float32)), k), n, jnp.int8))
+        if density == "empty_rows":
+            ind = ind.copy()
+            ind[:, ::3] = 0
     else:
         ind = (rng.rand(2, n, n) < density).astype(np.int8)
+        if density > 0.05:
+            ind[:, :, 31 * (n // 32)] = 1  # plane 31, the int32 sign bit
     packed = np.asarray(jadj.pack_indicator(jnp.asarray(ind)))
-    return packed, rng.randn(2, n, c).astype(np.float32)
+    f = rng.randn(2, n, c).astype(np.float32)
+    if density not in (None, "empty_rows") and density > 0.05:
+        f = np.clip(np.round(f * 64) / 64, -4, 4).astype(np.float32)
+    return packed, f
 
 
-@pytest.mark.parametrize("density", [None, 0.05])
+@pytest.mark.parametrize("density", [None, 0.05, "empty_rows", 0.5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_packed_neighbor_mean_matches(dtype, density):
     """K4's plain version against the JAX ``packed_neighbor_mean`` on its jnp
     route and its Pallas kernel in interpret mode (tests/test_ops.py:172),
-    for a kNN graph (k bits a row) and a 5%-dense mask (any popcount)."""
+    for a kNN graph (k bits a row), one with rows that hold no bit, a
+    5%-dense mask (any popcount) and a half-dense one with plane 31 set in
+    every row."""
     k, n, c = 6, 256, 48
     packed, f = _packed_case(12, k, n, c, density)
     jd = jnp.dtype(dtype)
