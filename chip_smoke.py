@@ -22,6 +22,21 @@ just before each serving run and read just after it. At N=32768 the three
 routes also run side by side on the same clouds and weights, and their
 descriptors must agree.
 
+Then recall@N evaluation ("evaluate"): ``cli/generate_tuples.py`` writes a
+synthetic dataset of 5 runs x 80 submaps x 4096 points at difficulty 0.5
+and its test pickles into a temporary directory; the full-width EPC-Net's
+seeded weights go to an export pair (``weights.save_export``), and
+``cli/evaluate.py`` evaluates it on the card with the latency probe, counts
+zeroed before it (K1 must launch, its value rounds never), in the scan and
+the pickle form, each equal to ``evaluate_dataset`` in process. Every
+database submap's descriptor from ``embed_entries`` (through K1) is held
+against the plain-twin path in the CLI's batches of 64 (K1 itself held
+against its plain version on run 0's two batches), every submap retrieves itself (fp32 and
+int8), and the full-width PointNetVLAD is evaluated on the same data. The
+bf16 GEMM check holds the card's full-width descriptors against JAX's
+(``tests/torch_bf16_fullwidth.npz``) with cuBLAS's reduced-precision bf16
+reduction allowed and not.
+
 Then the kNN trace path (``epcnet_torch.scripts.knn_trace``), counts zeroed
 before it: a profiler trace of B=8 forwards at N=4096, the phase ablation
 (K5 after 1 and k rounds and the threshold count, then K1) and K6 against
@@ -38,15 +53,20 @@ non-zero; without a card it exits 2 and prints no result. Needs no network.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from epcnet_torch.configs import ModelConfig
+from epcnet_torch.cli import evaluate, generate_tuples
+from epcnet_torch.configs import DataConfig, ExperimentConfig, ModelConfig, pointnetvlad_config
+from epcnet_torch.data import load_pc_files_native, load_pickle, native_available
+from epcnet_torch.evals import embed_entries, evaluate_dataset, get_recall
 from epcnet_torch.models import param_count
 from epcnet_torch.models.epcnet import adjacency_route
 from epcnet_torch.ops import _build, adjacency, knn, knn_phases
@@ -54,7 +74,7 @@ from epcnet_torch.scripts import knn_trace
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.utils.timing import cuda_ms
-from epcnet_torch.weights import init_flat_variables
+from epcnet_torch.weights import init_flat_variables, save_export
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # fp32 instructions a second outside the tensor cores: 132 SMs x 128 lanes x
@@ -67,6 +87,14 @@ BF16_ULP = 2.0 ** -7
 # a 1-ulp bf16 difference in a neighbour mean moves a descriptor entry by
 # ~1e-4 (K1 against its plain twin at N=4096); the routes are held to 1e-3
 ROUTE_TOL = 1e-3
+# the port against JAX in bf16 (tests/test_torch_models.py)
+BF16_TOL = 2e-4
+# PointNetVLAD at the published widths, from jax.eval_shape of the JAX model
+# (tests/test_torch_models.py::test_pointnetvlad_full_width_params)
+PNV_PARAMS = 19_786_505
+# JAX's full-width bf16 descriptors for the bf16 GEMM check
+BF16_FULLWIDTH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                              "torch_bf16_fullwidth.npz")
 # every launch counter of the port: (wrapper, attribute)
 COUNTERS = {
     "K1": (knn.knn_adjacency_cuda, "launches"),
@@ -282,6 +310,153 @@ def check_k6(x, k) -> float:
     return float(err.max())
 
 
+def evaluate_phase(embed, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
+    """Recall@N evaluation of the full-width EPC-Net (``embed``, weights
+    ``flat``) and PointNetVLAD on BASELINE's protocol, generated under
+    ``tmp``; see the module docstring. Returns what the timing lines
+    print, with the launch counts of the CLI's run under ``"counts"``."""
+    dev, n, k = torch.device("cuda"), cfg.num_points, cfg.knn_k
+    root, log_dir = os.path.join(tmp, "data"), os.path.join(tmp, "log")
+    with Phase("dataset"):
+        generate_tuples.main(["--dataset_root", root, "--synthetic", "--synthetic_runs", "5",
+                              "--synthetic_submaps", "80", "--synthetic_difficulty", "0.5",
+                              "--num_points", str(n)])
+        generate_tuples.main(["--dataset_root", root, "--mode", "test"])
+        exp = ExperimentConfig(model=cfg, data=DataConfig(dataset_root=root, num_points=n))
+        save_export(os.path.join(log_dir, "export"), exp, flat)
+        native = native_available()  # builds the loader, outside the evaluation's time
+    pickles = [os.path.join(root, f"oxford_evaluation_{part}.pickle")
+               for part in ("database", "query")]
+    regions = {"oxford": tuple(load_pickle(p) for p in pickles)}
+    db_sets = regions["oxford"][0]
+    assert [len(s) for s in db_sets] == [80] * 5, [len(s) for s in db_sets]
+
+    with Phase("evaluate"):
+        zero_counts()
+        t0 = time.perf_counter()
+        scan = evaluate.main(["--dataset_root", root, "--log_dir", log_dir, "--latency_probe"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts["K1"] >= 1, "the evaluation never launched K1"
+        assert counts["K1 k>32"] == 0, counts  # k=20: every K1 ran tiled
+        pickled = evaluate.main(["--log_dir", log_dir, "--database_pickle", pickles[0],
+                                 "--query_pickle", pickles[1],
+                                 "--output", os.path.join(log_dir, "results_pickled.txt")])
+        for name in ("results.txt", "results.json", "results_pickled.txt"):
+            assert os.path.isfile(os.path.join(log_dir, name)), name
+        with open(os.path.join(log_dir, "results.json")) as f:
+            saved = json.load(f)
+        for name, m in saved.items():
+            r = np.array(m["recall_at"])
+            assert r.shape == (25,) and ((r >= 0) & (r <= 1)).all(), (name, r)
+            assert (np.diff(r) >= 0).all() and 0 <= m["recall_at_1pct"] <= 1, (name, m)
+        direct = evaluate_dataset(embed, regions, exp.data, exp.eval)
+        for form, out in (("scan", scan), ("pickle", pickled)):
+            got = out["results"]["average"]
+            assert np.array_equal(got["recall_at"], direct["average"]["recall_at"]), form
+            assert got["recall_at_1pct"] == direct["average"]["recall_at_1pct"], form
+        assert saved["average"]["recall_at"] == [float(x) for x in direct["average"]["recall_at"]]
+        lat = scan["latency"]
+        assert all(np.isfinite(v) and v > 0 for v in lat.values()), lat
+    avg = direct["average"]
+    log(f"phase evaluate: 5 x 80 submaps, {eval_s:.2f} s; untrained recall@1 "
+        f"{avg['recall_at'][0]}, @1% {avg['recall_at_1pct']}; the CLI (scan and pickle "
+        f"forms) equals evaluate_dataset; launches {counts}")
+
+    with Phase("evaluate descriptors"):
+        # every database submap: embed_entries (K1) against the plain-twin
+        # path, in the CLI's batches (the last one 16 clouds + 48 zero ones)
+        model, err, descs, bs = embed.model, 0.0, [], exp.eval.batch_size
+        for r, s in enumerate(db_sets):
+            d_k = embed_entries(embed, s, exp.data, bs)
+            pts = load_pc_files_native([s[i]["query"] for i in range(len(s))], root, n)
+            pts = np.concatenate([pts, np.zeros((-len(pts) % bs, n, 3), np.float32)])
+            for b in range(0, len(s), bs):
+                xb = torch.tensor(pts[b:b + bs], device=dev)
+                if r == 0:  # K1 at the path's shapes, the padded batch's ties included
+                    check_k1(xb, k, torch.bfloat16, splits=(1, 2, 4, 8))
+                with torch.inference_mode():
+                    d_p = model.forward_graph(xb, *knn.knn_adjacency_plain(xb, k, torch.bfloat16))
+                cnt = min(bs, len(s) - b)
+                err = max(err, float(np.abs(d_k[b:b + cnt] - d_p[:cnt].cpu().numpy()).max()))
+                del xb, d_p
+            descs.append(d_k)
+        assert err <= ROUTE_TOL, err
+        torch.cuda.empty_cache()
+        # every submap retrieves itself, fp32 and int8, in its run and in all 400
+        for d in descs + [np.concatenate(descs)]:
+            for quant in ("none", "int8"):
+                r, _, cnt = get_recall(d, d, [[i] for i in range(len(d))], quantize=quant)
+                assert r[0] == 1.0 and cnt == len(d), (quant, r[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # what the CLI runs: the eval batch, file reads included
+        for s in db_sets:
+            embed_entries(embed, s, exp.data, exp.eval.batch_size)
+        submaps_per_s = 400 / (time.perf_counter() - t0)
+    log(f"phase evaluate descriptors: 400 submaps in batches of {bs}, kernel vs plain-twin "
+        f"path max abs err {err} (tolerance {ROUTE_TOL}); K1 exact on run 0's batches "
+        f"[{bs}, {n}, 3]; all self-retrieved at rank 0 (fp32, int8)")
+
+    with Phase("pointnetvlad"):
+        pnv_s = {}  # host seconds by step
+        t0 = time.perf_counter()
+        pcfg = pointnetvlad_config()
+        flat_p = init_flat_variables(pcfg, seed=0)
+        pnv_s["init_weights"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        embed_p = build_embed_fn(pcfg, variables=flat_p)
+        torch.cuda.synchronize()
+        pnv_s["build"] = time.perf_counter() - t0
+        assert param_count(embed_p.model) == PNV_PARAMS, param_count(embed_p.model)
+        x32 = torch.tensor(load_pc_files_native([db_sets[0][i]["query"] for i in range(32)],
+                                                root, n), device=dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        d = embed_p(x32)
+        assert d.shape == (32, 256) and bool(torch.isfinite(d).all())
+        assert bool(((torch.linalg.vector_norm(d, dim=-1) - 1).abs() < 1e-5).all())
+        pnv_s["first_embed_b32"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_p = evaluate_dataset(embed_p, regions, exp.data, exp.eval)["average"]
+        torch.cuda.synchronize()
+        pnv_s["evaluate_dataset"] = time.perf_counter() - t0
+        assert not any(read_counts().values()), read_counts()  # no kernel of the port's
+        pnv_ms = cuda_ms(lambda: embed_p(x32), 5)
+        epc_ms = cuda_ms(lambda: embed(x32), 5)
+    log(f"phase pointnetvlad: {PNV_PARAMS} params; untrained recall@1 {res_p['recall_at'][0]}, "
+        f"@1% {res_p['recall_at_1pct']}; host seconds {pnv_s}")
+    return {"counts": counts, "eval_s": eval_s, "embed_entries_submaps_per_s": submaps_per_s,
+            "embed_b32_ms": {"epcnet": epc_ms, "pointnetvlad": pnv_ms},
+            "latency_probe_run0": lat, "native_loader": native,
+            "recall": {"epcnet": {"at_1": avg["recall_at"][0],
+                                  "at_1pct": avg["recall_at_1pct"]},
+                       "pointnetvlad": {"at_1": res_p["recall_at"][0],
+                                        "at_1pct": res_p["recall_at_1pct"]}},
+            "desc_max_abs_err": err, "batch": exp.eval.batch_size, "pointnetvlad_s": pnv_s}
+
+
+def bf16_gaps(embed) -> dict:
+    """The full-width bf16 descriptors on the card against JAX's on the CPU
+    (the same seeded weights and clouds), max abs, with cuBLAS's
+    reduced-precision bf16 reduction allowed and not; the port's setting is
+    restored."""
+    data = np.load(BF16_FULLWIDTH)
+    x = np.random.default_rng(int(data["seed"])).uniform(-1, 1, (2, 4096, 3))
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    gaps = {}
+    try:
+        for allowed in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allowed
+            got = embed(x.astype(np.float32)).cpu().numpy()
+            gaps[f"reduced_precision_{str(allowed).lower()}"] = float(
+                np.abs(got - data["descriptors"]).max())
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    gaps["port_setting"] = f"reduced_precision_{str(flag).lower()}"
+    return gaps
+
+
 def spill_bytes(report: str) -> dict:
     """{kernel: spill store + load bytes} from a ptxas -v report."""
     out, name = {}, None
@@ -343,6 +518,7 @@ def main() -> int:
         x32 = cloud(32, n)
         err = check_k1(x8, k, bf16, splits=splits)  # the trace's batch
         err = max(err, check_k1(x32, k, bf16, splits=splits))  # the serving batch
+        err = max(err, check_k1(cloud(64, n), k, bf16, splits=splits))  # the evaluation's
         grid = torch.round(cloud(2, n) * 6) / 6  # coarse grid: ties everywhere, across tiles
         grid[0, 40:61] = grid[0, 5]
         check_k1(grid, k, bf16, splits=splits)
@@ -362,7 +538,7 @@ def main() -> int:
         check_k1(cloud(2, n), 32, bf16, splits=splits)  # the register limit
         x33 = cloud(2, n)  # k one above the register list: the value rounds
         err_k1_r = check_k1(x33, 33, bf16)
-    log(f"phase K1 check: ok (indicator exact on 18 cases, 9 of them also at S = 1, 2, 4 "
+    log(f"phase K1 check: ok (indicator exact on 19 cases, 10 of them also at S = 1, 2, 4 "
         f"and 8; the value rounds at k=33 alone; proxy max abs err {err}, {err_k1_r} at "
         "k=33)")
 
@@ -573,6 +749,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"phase serve capacity: launches {cap_counts}")
 
+    # -- 10a. recall@N evaluation through the CLIs, launch counts zeroed ---
+    with tempfile.TemporaryDirectory(prefix="epcnet_eval_") as tmp:
+        ev = evaluate_phase(embed, cfg, flat, tmp)
+    eval_counts = ev.pop("counts")
+    with Phase("bf16 check"):
+        gaps = bf16_gaps(embed)
+    log(f"phase bf16 check: full-width bf16 descriptors against JAX's, max abs {gaps} "
+        f"(tolerance {BF16_TOL})")
+    torch.cuda.empty_cache()
+
     # -- 10b. the kNN trace path, launch counts zeroed ---------------------
     with Phase("knn trace"):
         zero_counts()
@@ -606,14 +792,19 @@ def main() -> int:
     with Phase("timings"):
         kernels = []
 
+        path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
+                       "evaluate": eval_counts, "knn trace": trace_counts}
+
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
-                  shape, **extra):
+                  shape, counter, **extra):
             b_ms, by = bound(nbytes, ops)
             kernels.append({
                 "name": name, "route": "cuda", "source": f"epcnet_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err_,
                 "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-                "library_ms": None, "shape": shape, "k": k, **extra})
+                "library_ms": None, "shape": shape, "k": k,
+                "launches_by_path": {p: c[counter] for p, c in path_counts.items()},
+                **extra})
 
         def xyz_bytes(x):
             return x.numel() * 4
@@ -623,12 +814,12 @@ def main() -> int:
         plain32 = cuda_ms(lambda: knn.knn_adjacency_plain(x32, k, bf16), 3)
         entry("knn_adj", "knn_adj.cu", "epcnet_tpu/ops/knn.py:68", dense_counts["K1"],
               err, ms32, plain32, xyz_bytes(x32) + 32 * n * n + 32 * n * 3 * 2,
-              8 * 32 * n * n, [32, n, 3])
+              8 * 32 * n * n, [32, n, 3], "K1")
         ms_np = cuda_ms(lambda: knn.knn_adjacency_cuda(x32, k, bf16, with_proxy=False), 20)
         plain_np = cuda_ms(lambda: knn.knn_adjacency_plain(x32, k, bf16, with_proxy=False), 3)
         entry("knn_adj (no proxy)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:247",
               dense_counts["K1'"] + cap_counts["K1'"], 0.0, ms_np, plain_np,
-              xyz_bytes(x32) + 32 * n * n, 8 * 32 * n * n, [32, n, 3])
+              xyz_bytes(x32) + 32 * n * n, 8 * 32 * n * n, [32, n, 3], "K1'")
         ms8 = cuda_ms(lambda: knn.knn_adjacency_cuda(x8, k, bf16), 20)
         plain8 = cuda_ms(lambda: knn.knn_adjacency_plain(x8, k, bf16), 3)
         b8 = bound(xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 2, 8 * 8 * n * n)
@@ -640,7 +831,8 @@ def main() -> int:
         entry("knn_adj (k > 32)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:68",
               dense_counts["K1 k>32"], err_k1_r, cuda_ms(lambda: knn.knn_adjacency_cuda(
                   x33, 33, bf16), 5), cuda_ms(lambda: knn.knn_adjacency_plain(x33, 33, bf16), 3),
-              xyz_bytes(x33) + 2 * n * n + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], k=33)
+              xyz_bytes(x33) + 2 * n * n + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], "K1 k>32",
+              k=33)
 
         # K2: the gather route's shape, B=1, N=65536, ids alone
         x64 = torch.tensor(sub64k[:1], device=dev)
@@ -651,7 +843,7 @@ def main() -> int:
         plain_k2 = cuda_ms(lambda: knn.knn_plain(x64, k), 1)
         two_k2 = cuda_ms(lambda: torch.topk(torch.cdist(x64, x64), k, largest=False), 3)
         entry("knn_ids", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151", cap_counts["K2"], err_k2,
-              ms_k2, plain_k2, xyz_bytes(x64) + n64 * k * 4, 8 * n64 * n64, [1, n64, 3],
+              ms_k2, plain_k2, xyz_bytes(x64) + n64 * k * 4, 8 * n64 * n64, [1, n64, 3], "K2",
               ms_x_sorted=ms_k2_sorted, two_call_ms=two_k2,
               two_call="torch.cdist + torch.topk(largest=False); "
               "sqrt distances, ties in no promised order")
@@ -667,7 +859,7 @@ def main() -> int:
         ms_r = cuda_ms(lambda: knn.knn_cuda(x33, 33), 5)
         entry("knn_ids (k > 32)", "knn_ids.cu", "epcnet_tpu/ops/knn.py:151",
               cap_counts["K2 k>32"], err_k2_r, ms_r, cuda_ms(lambda: knn.knn_plain(x33, 33), 3),
-              xyz_bytes(x33) + 2 * n * 33 * 4, 8 * 2 * n * n, [2, n, 3], k=33)
+              xyz_bytes(x33) + 2 * n * 33 * 4, 8 * 2 * n * n, [2, n, 3], "K2 k>32", k=33)
         x131 = cloud(1, 131072)
         ms_k2_131 = cuda_ms(lambda: knn.knn_cuda(x131, k), 3)
         b131 = bound(xyz_bytes(x131) + 131072 * k * 4, 8 * 131072 ** 2)
@@ -682,14 +874,15 @@ def main() -> int:
         entry("knn_adj (packed)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:119",
               cap_counts["K3"], err_k3, ms_k3, plain_k3,
               xyz_bytes(x_pack) + 2 * n32 * n32 // 8 + 2 * n32 * 3 * 2,
-              8 * 2 * n32 * n32, [2, n32, 3])
+              8 * 2 * n32 * n32, [2, n32, 3], "K3")
         k3_splits = {s_: cuda_ms(lambda: knn._launch_adj(x_pack, k, bf16, True, True, "K3", s_),
                                  5) for s_ in (0, 1, 2, 4, 8)}
         ms_r3 = cuda_ms(lambda: knn.knn_packed_cuda(x33, 33, bf16), 5)
         entry("knn_adj (packed, k > 32)", "knn_adj.cu", "epcnet_tpu/ops/knn.py:119",
               cap_counts["K3 k>32"], err_k3_r, ms_r3,
               cuda_ms(lambda: knn.knn_adjacency_plain(x33, 33, bf16, fmt="packed"), 3),
-              xyz_bytes(x33) + 2 * n * n // 8 + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], k=33)
+              xyz_bytes(x33) + 2 * n * n // 8 + 2 * n * 3 * 2, 8 * 2 * n * n, [2, n, 3], "K3 k>32",
+              k=33)
         # the tiled core at K1's shape, B=32, N=4096: a reading for K1's future
         tiled_b32 = {"k1_ms": ms32, "k2_ids_ms": cuda_ms(lambda: knn.knn_cuda(x32, k), 20),
                      "k3_ms": cuda_ms(lambda: knn.knn_packed_cuda(x32, k, bf16), 20),
@@ -706,7 +899,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         entry("packed_mean", "packed_mean.cu", "epcnet_tpu/ops/adjacency.py:129",
               cap_counts["K4"], err_k4, ms_k4, plain_k4,
-              planes.numel() * 4 + 2 * f_relu.numel() * 2, set_bits * 64, [2, n32, 64],
+              planes.numel() * 4 + 2 * f_relu.numel() * 2, set_bits * 64, [2, n32, 64], "K4",
               dense_product_ms=dense_k4, dense_product="torch.bmm of the unpacked bf16 "
               "mask with F, fp32 sum (the dense route's layer product; unpack not timed)")
 
@@ -715,11 +908,11 @@ def main() -> int:
         plain_k5 = cuda_ms(lambda: knn_phases.knn_phase_plain(x8, k, True), 3)
         entry("knn_phase", "knn_phase.cu", "scripts/hw_knn_trace.py:83", trace_counts["K5"],
               err_k5, trace["phase_ms_per_batch"]["C_plus_threshold"], plain_k5,
-              xyz_bytes(x8) + 8 * n * 4, 8 * 8 * n * n, [8, n, 3], rounds=k, thresh=True)
+              xyz_bytes(x8) + 8 * n * 4, 8 * 8 * n * n, [8, n, 3], "K5", rounds=k, thresh=True)
         plain_k6 = cuda_ms(lambda: knn_phases.knn_adjacency_pipelined_plain(x8, k), 3)
         entry("knn_pipelined", "knn_pipelined.cu", "scripts/hw_knn_trace.py:162",
               trace_counts["K6"], err_k6, trace["pipelined"]["pipelined_ms_per_batch"],
-              plain_k6, xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 4, 8 * 8 * n * n, [8, n, 3])
+              plain_k6, xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 4, 8 * 8 * n * n, [8, n, 3], "K6")
 
         # the routes: one embed batch each, by CUDA events (mean of 3)
         route_ms = []
@@ -760,6 +953,8 @@ def main() -> int:
                               "query1_ms_median": sorted(q_ms)[len(q_ms) // 2],
                               "query1_ms_min": min(q_ms), "query1_ms": q_ms,
                               "db_rows": len(ix)}}))
+    log(json.dumps({"evaluate": ev}))
+    log(json.dumps({"bf16_gemm_check": {**gaps, "tolerance": BF16_TOL}}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -1,41 +1,51 @@
-"""Model zoo of the port: EPC-Net and EPC-Net-L (PointNetVLAD is ROADMAP
-item 7)."""
+"""Model zoo of the port: EPC-Net, EPC-Net-L and PointNetVLAD, in eval
+mode (training is ROADMAP item 4)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from epcnet_torch.configs import ModelConfig, epcnet_l_config
+from epcnet_torch.configs import ModelConfig, epcnet_l_config, pointnetvlad_config
 from epcnet_torch.device import resolve_device
 from epcnet_torch.models.epcnet import EPCNet, param_count
-from epcnet_torch.models.layers import Dense, DynamicBatchNorm, ProxyConv, SharedMLP
+from epcnet_torch.models.layers import Dense, DynamicBatchNorm, ProxyConv, SharedMLP, TNet
+from epcnet_torch.models.pointnetvlad import PointNetVLAD
 from epcnet_torch.models.vlad_head import GVLADHead
+
+MODELS = {"epcnet": EPCNet, "epcnet_l": EPCNet, "pointnetvlad": PointNetVLAD}
+
+
+def model_class(cfg: ModelConfig) -> type[nn.Module]:
+    """The module class ``cfg.name`` names."""
+    if cfg.name not in MODELS:
+        raise ValueError(f"unknown model {cfg.name!r}")
+    return MODELS[cfg.name]
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device | None = None) -> nn.Module:
     """The model for ``cfg.name``, in eval mode, on ``device`` (the card
     unless ``"cpu"`` is asked for; raises without a card). Parameters are
-    zeros until ``weights.load_flat_variables`` fills them."""
-    if cfg.name == "pointnetvlad":
-        raise NotImplementedError(
-            "pointnetvlad is not ported yet (ROADMAP item 7, PointNetVLAD)"
-        )
-    if cfg.name not in ("epcnet", "epcnet_l"):
-        raise ValueError(f"unknown model {cfg.name!r}")
+    zeros (a TNet's bias the identity) until ``weights.load_flat_variables``
+    fills them."""
+    cls = model_class(cfg)
     dev = resolve_device(device)
-    return EPCNet(cfg).to(dev).eval()
+    return cls(cfg).to(dev).eval()
 
 
 __all__ = [
     "get_model",
+    "model_class",
     "EPCNet",
+    "PointNetVLAD",
     "GVLADHead",
     "ProxyConv",
     "SharedMLP",
     "DynamicBatchNorm",
+    "TNet",
     "Dense",
     "param_count",
     "ModelConfig",
     "epcnet_l_config",
+    "pointnetvlad_config",
 ]

@@ -109,3 +109,28 @@ class ProxyConv(nn.Module):
                                       adjacency_scale=1.0 / self.knn_k)
         h = torch.cat([proxy - features, features], dim=-1)
         return F.relu(self.bn(self.dense(h)))
+
+
+class TNet(nn.Module):
+    """PointNet's spatial / feature transform net (PointNetVLAD): a per-point
+    MLP (64, 128, 1024), the max over points, an MLP (512, 256) and an fp32
+    ``h @ transform_w + transform_b``, reshaped to a [B, dim, dim]
+    transform. ``transform_w`` [256, dim²] keeps flax's param layout (it is
+    no Dense ``kernel``, so the flat names map with no transpose);
+    ``transform_b`` starts at the identity."""
+
+    def __init__(self, dim: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dim = dim
+        self.mlp = SharedMLP(dim, (64, 128, 1024), dtype)
+        self.fc = SharedMLP(1024, (512, 256), dtype)
+        self.transform_w = nn.Parameter(torch.zeros(256, dim * dim))
+        self.transform_b = nn.Parameter(torch.eye(dim).reshape(-1))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(_TRAINING)
+        h = self.mlp(x).amax(dim=-2)  # [B, 1024]
+        h = self.fc(h)
+        t = h.float() @ self.transform_w + self.transform_b
+        return t.reshape(x.shape[0], self.dim, self.dim)

@@ -4,7 +4,7 @@
 fp32 throughout (TF32 is off: ``epcnet_torch.ops`` imports ops/vlad.py).
 Ties break by the lowest index, as ``jax.lax.top_k`` does: the k smallest
 come from a stable sort, which ``torch.topk`` does not promise. The sharded and ring variants are the
-multi-device slice (ROADMAP item 9).
+multi-device slice (ROADMAP item 6).
 """
 
 from __future__ import annotations

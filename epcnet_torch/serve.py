@@ -16,8 +16,8 @@ int8 127 with scale 1e6), so ids stay valid and the tail never wins.
 ``quantize="int8"`` stores the device DB int8 + per-row scale; the host DB
 stays the fp32 master, so save/load are lossless.
 
-Not ported yet: ``sync_mode="background"`` (ROADMAP item 8) and a ``mesh``
-for sharded retrieval (ROADMAP item 9). ``warm_on_grow`` has no counterpart:
+Not ported yet: ``sync_mode="background"`` (ROADMAP item 5) and a ``mesh``
+for sharded retrieval (ROADMAP item 6). ``warm_on_grow`` has no counterpart:
 eager PyTorch compiles nothing per DB capacity, so a capacity growth costs
 no compile to hide.
 
@@ -84,11 +84,11 @@ class PlaceIndex:
             )
         if sync_mode == "background":
             raise NotImplementedError(
-                "sync_mode='background' is not ported yet (ROADMAP item 8, Serving)"
+                "sync_mode='background' is not ported yet (ROADMAP item 5, Serving)"
             )
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh (sharded retrieval) is not ported yet (ROADMAP item 9, "
+                "a mesh (sharded retrieval) is not ported yet (ROADMAP item 6, "
                 "Multi-device)"
             )
         self.device = resolve_device(device)

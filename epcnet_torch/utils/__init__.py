@@ -1,5 +1,6 @@
-"""Timing and profiling helpers (counterpart of ``epcnet_tpu/utils``)."""
+"""Timing, profiling and logging helpers (counterpart of ``epcnet_tpu/utils``)."""
 
+from epcnet_torch.utils.logging import log_string
 from epcnet_torch.utils.profiling import (
     profile_region,
     region_ms,
@@ -17,4 +18,5 @@ __all__ = [
     "start_trace",
     "top_device_ops",
     "region_ms",
+    "log_string",
 ]

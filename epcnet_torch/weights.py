@@ -11,6 +11,7 @@ with flax's Dense ``kernel`` [in, out] becoming torch's ``weight`` [out, in].
 from __future__ import annotations
 
 import json
+import os
 from typing import Mapping
 
 import numpy as np
@@ -86,33 +87,62 @@ def load_export(basename: str) -> tuple[ExperimentConfig, dict[str, np.ndarray]]
     return ExperimentConfig.from_dict(manifest["config"]), flat
 
 
+def save_export(basename: str, cfg: ExperimentConfig, flat: Mapping[str, np.ndarray],
+                step: int = 0) -> None:
+    """Write ``flat`` as the ``<basename>.npz`` / ``<basename>.json`` pair in
+    the format of ``epcnet_tpu/cli/export.py`` (fp32 arrays; a manifest with
+    the step, the full experiment config and every leaf's name, shape and
+    dtype), which ``load_export`` and the port's CLIs read."""
+    flat = {k: np.asarray(v, np.float32) for k, v in flat.items()}
+    os.makedirs(os.path.dirname(basename) or ".", exist_ok=True)
+    np.savez(basename + ".npz", **flat)
+    manifest = {
+        "framework": "epcnet_torch",
+        "step": int(step),
+        "config": json.loads(cfg.to_json()),
+        "leaves": [{"name": k, "shape": list(v.shape), "dtype": str(v.dtype)}
+                   for k, v in flat.items()],
+    }
+    with open(basename + ".json", "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
 def init_flat_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
-    """Random weights for ``cfg`` in the flat naming, from a numpy seed.
+    """Random weights for ``cfg`` in the flat naming, from a numpy seed; the
+    layout of names and shapes is that of the model ``cfg.name`` names.
 
     Kernels are normal with std g/sqrt(fan_in): g = sqrt(2) (He) where BN
-    and ReLU follow (ProxyConv, lift), g = 10 for the VLAD assignment — a
-    sharp soft-assignment, as a trained NetVLAD has; with unit-scale logits
-    the softmax is near uniform and every cloud's descriptor looks alike —
-    and g = 1 (LeCun) for the grouped, output and gating FCs. Centroids are
-    normal with std 1/sqrt(D), biases small normal; BN scale ~ 1 + N(0,
-    0.1²), bias ~ N(0, 0.1²), and the running stats are non-trivial (mean ~
-    N(0, 0.1²), var ~ U(0.5, 1.5)) so that BN does real work in every
-    check."""
-    from epcnet_torch.models import EPCNet  # the layout of names and shapes
+    and ReLU follow (ProxyConv, lift, PointNet MLPs, T-Nets), g = 10 for the
+    VLAD assignment — a sharp soft-assignment, as a trained NetVLAD has;
+    with unit-scale logits the softmax is near uniform and every cloud's
+    descriptor looks alike — and g = 1 (LeCun) for the grouped, output and
+    gating FCs. Centroids are normal with std 1/sqrt(D), biases small
+    normal; BN scale ~ 1 + N(0, 0.1²), bias ~ N(0, 0.1²), and the running
+    stats are non-trivial (mean ~ N(0, 0.1²), var ~ U(0.5, 1.5)) so that BN
+    does real work in every check. A T-Net's ``transform_w`` is N(0,
+    (0.1/16)²) and its ``transform_b`` the identity plus N(0, 0.05²), so
+    each transform moves the points by ~0.1-0.2 of their scale."""
+    from epcnet_torch.models import model_class
 
     with torch.device("meta"):
-        model = EPCNet(cfg)
+        model = model_class(cfg)(cfg)
     rng = np.random.default_rng(seed)
     buffers = {k for k, _ in model.named_buffers()}
+    head = ("gvlad.", "netvlad.")
     flat = {}
     for key, t in list(model.named_parameters()) + list(model.named_buffers()):
         name, transpose = _to_flat_name(key, key in buffers)
         shape = tuple(t.shape[::-1]) if transpose else tuple(t.shape)
         leaf = key.rsplit(".", 1)[-1]
         if leaf == "weight":  # [in, out]
-            gain = (10.0 if key.startswith("gvlad.assign") else
-                    1.0 if key.startswith("gvlad") else np.sqrt(2.0))
+            gain = (10.0 if key.endswith("assign.weight") else
+                    1.0 if key.startswith(head) else np.sqrt(2.0))
             v = rng.normal(0.0, gain / np.sqrt(shape[0]), shape)
+        elif leaf == "transform_w":  # [256, dim²]
+            v = rng.normal(0.0, 0.1 / np.sqrt(shape[0]), shape)
+        elif leaf == "transform_b":  # [dim²], the identity plus noise
+            dim = int(round(np.sqrt(shape[0])))
+            v = np.eye(dim).reshape(-1) + rng.normal(0.0, 0.05, shape)
         elif key.endswith("group_w"):  # [G, in, out]
             v = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
         elif key.endswith("centroids"):

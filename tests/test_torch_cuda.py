@@ -13,16 +13,21 @@ twin runs cuBLAS, so the two differ by fp32 rounding of the sum, at most about 1
 results within that.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from epcnet_torch.configs import ModelConfig
+from epcnet_torch.configs import ModelConfig, pointnetvlad_config
+from epcnet_torch.evals import get_recall, retrieval_latency_probe
 from epcnet_torch.ops import adjacency, knn, knn_phases
 from epcnet_torch.train.step import build_embed_fn
+from epcnet_torch.weights import init_flat_variables
 
 pytestmark = pytest.mark.cuda
 BF16_ULP = 2.0 ** -7
+BF16_TOL = 2e-4  # tests/test_torch_models.py: the port against JAX in bf16
 TILED_MAX_K = 32  # the tiled core of K1-K3: its register list (knn_tile.cuh)
 
 
@@ -341,3 +346,47 @@ def test_shared_memory_plans(cuda):
     x = _cloud(1, 1, 27700, cuda)
     adj, _ = knn_phases.knn_adjacency_pipelined_cuda(x, 20)  # the largest N that fits
     assert bool((adj.sum(-1, dtype=torch.int32) == 20).all())
+
+
+def test_bf16_fullwidth_matches_jax(cuda):
+    """The bf16 GEMM reduction check: the default full-width model on the
+    card against JAX's descriptors computed on the CPU
+    (tests/torch_bf16_fullwidth.npz, same seeded weights and clouds)."""
+    data = np.load(os.path.join(os.path.dirname(__file__), "torch_bf16_fullwidth.npz"))
+    x = np.random.default_rng(int(data["seed"])).uniform(-1, 1, (2, 4096, 3))
+    cfg = ModelConfig()
+    embed = build_embed_fn(cfg, device=cuda, variables=init_flat_variables(cfg, seed=0))
+    got = embed(x.astype(np.float32)).cpu().numpy()
+    gap = float(np.abs(got - data["descriptors"]).max())
+    assert gap <= BF16_TOL, gap
+
+
+def test_pointnetvlad_on_card(cuda):
+    """Full width: finite, unit-norm descriptors at B=4, N=4096."""
+    cfg = pointnetvlad_config()
+    embed = build_embed_fn(cfg, device=cuda, variables=init_flat_variables(cfg, seed=0))
+    d = embed(_cloud(12, 4, 4096, cuda))
+    assert d.shape == (4, 256) and bool(torch.isfinite(d).all())
+    assert bool(((torch.linalg.vector_norm(d, dim=-1) - 1).abs() < 1e-5).all())
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_get_recall_card_equals_cpu(cuda, quantize):
+    rng = np.random.default_rng(13)
+    db = rng.standard_normal((500, 256)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    q = db[:40] + 0.05 * rng.standard_normal((40, 256)).astype(np.float32)
+    gt = [[i] for i in range(40)]
+    got = get_recall(db, q, gt, quantize=quantize, device=cuda)
+    want = get_recall(db, q, gt, quantize=quantize, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[0][0] == 1.0
+
+
+def test_latency_probe_on_card(cuda):
+    """The chained queries run as CUDA graphs: finite, positive times."""
+    db = np.random.default_rng(14).standard_normal((80, 256)).astype(np.float32)
+    out = retrieval_latency_probe(db, num_queries=16, device=cuda)
+    assert set(out) == {"p50_ms", "p99_ms", "device_ms"}
+    assert all(np.isfinite(v) for v in out.values())
+    assert out["p99_ms"] >= out["p50_ms"] > 0 and out["device_ms"] > 0

@@ -9,6 +9,8 @@ over 16 seeds (inputs scaled 0.5-20x) the worst gap measured was 1.8e-5 for
 epcnet and 4.9e-6 for epcnet_l, so bf16 is held to 2e-4.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,13 +22,14 @@ from epcnet_tpu.cli.export import flatten_variables
 from epcnet_tpu.models import get_model as j_get_model
 from epcnet_tpu.models.layers import ProxyConv as JProxyConv
 from epcnet_tpu.models.layers import SharedMLP as JSharedMLP
+from epcnet_tpu.models.layers import TNet as JTNet
 from epcnet_tpu.models.vlad_head import GVLADHead as JGVLADHead
 from epcnet_tpu.ops.knn import packed_layout_supported
 
 from epcnet_torch import configs as tcfg
-from epcnet_torch.models import get_model
+from epcnet_torch.models import PointNetVLAD, get_model, param_count
 from epcnet_torch.models.epcnet import _packed_layout_supported, adjacency_route
-from epcnet_torch.models.layers import ProxyConv, SharedMLP
+from epcnet_torch.models.layers import ProxyConv, SharedMLP, TNet
 from epcnet_torch.models.vlad_head import GVLADHead
 from epcnet_torch.weights import init_flat_variables, load_flat_variables
 
@@ -44,13 +47,21 @@ GOLDEN_KW = {
                      proxyconv_channels=(8, 8), lift_channels=(16, 32),
                      feature_dim=32, vlad_clusters=4, vlad_groups=2,
                      vlad_group_dim=8),
+    "pointnetvlad": dict(num_points=128, use_pallas=False, vlad_clusters=8,
+                         feature_dim=64, pointnet_channels=(16, 16, 16, 32, 64),
+                         vlad_group_dim=256),
 }
+# PointNetVLAD at the published widths (pointnetvlad_config()), from
+# jax.eval_shape of the JAX model (test_pointnetvlad_full_width_params)
+PNV_PARAMS = 19_786_505
 
 
 def _cfgs(name, **kw):
     kw = {**GOLDEN_KW.get(name, {}), **kw}
     if name == "epcnet_l":
         return jcfg.epcnet_l_config(**kw), tcfg.epcnet_l_config(**kw)
+    if name == "pointnetvlad":
+        return jcfg.pointnetvlad_config(**kw), tcfg.pointnetvlad_config(**kw)
     return jcfg.ModelConfig(**kw), tcfg.ModelConfig(**kw)
 
 
@@ -63,13 +74,22 @@ def _seeded_stats(batch_stats, rng):
         batch_stats)
 
 
+def _seeded_transforms(params, rng):
+    """A T-Net's transform_w (zeros at a flax init) ~ N(0, (0.1/16)^2), so
+    that each transform does real work."""
+    return jax.tree_util.tree_map_with_path(
+        lambda p, a: jnp.asarray(rng.normal(0.0, 0.1 / 16, a.shape).astype(np.float32))
+        if p[-1].key == "transform_w" else a, params)
+
+
 def _both(name, seed, x, stats=True, **kw):
     jc, tc = _cfgs(name, **kw)
     jm = j_get_model(jc)
     v = jm.init(jax.random.PRNGKey(seed), jnp.asarray(x), train=False)
     if stats:
-        v = {"params": v["params"],
-             "batch_stats": _seeded_stats(v["batch_stats"], np.random.RandomState(seed))}
+        rng = np.random.RandomState(seed)
+        v = {"params": _seeded_transforms(v["params"], rng),
+             "batch_stats": _seeded_stats(v["batch_stats"], rng)}
     want = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
     tm = get_model(tc, device="cpu")
     load_flat_variables(tm, flatten_variables(v["params"], v.get("batch_stats")))
@@ -89,7 +109,7 @@ def test_model_matches_jax(name, dtype):
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("name", ["epcnet", "epcnet_l"])
+@pytest.mark.parametrize("name", ["epcnet", "epcnet_l", "pointnetvlad"])
 def test_golden_descriptors_reproduced(name):
     """tests/golden_descriptors.npz (JAX init from PRNGKey(7), bf16)."""
     golden = np.load("tests/golden_descriptors.npz")[name]
@@ -264,11 +284,116 @@ def test_route_choice_matches_jax_model(fmt, monkeypatch):
 
 
 def test_get_model_names():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        get_model(tcfg.pointnetvlad_config(), device="cpu")
+    pnv = get_model(tcfg.pointnetvlad_config(), device="cpu")
+    assert isinstance(pnv, PointNetVLAD) and not pnv.training
+    assert param_count(pnv) == PNV_PARAMS
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        pnv(torch.zeros(1, 64, 3), train=True)
     with pytest.raises(ValueError, match="unknown model"):
         get_model(tcfg.ModelConfig(name="dgcnn"), device="cpu")
     m = get_model(tcfg.ModelConfig(), device="cpu")
     assert sum(p.numel() for p in m.parameters()) == 2_742_144
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         m(torch.zeros(1, 64, 3), train=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_tnet", [True, False])
+def test_pointnetvlad_matches_jax(use_tnet, dtype):
+    """At a small width (pointnet_channels 16-64, 8 clusters, N=128), with
+    seeded BN statistics and T-Net transforms."""
+    x = np.random.RandomState(28).uniform(-1, 1, (2, 128, 3)).astype(np.float32)
+    got, want = _both("pointnetvlad", 6, x, use_tnet=use_tnet, compute_dtype=dtype)
+    assert got.shape == (2, 256) and np.isfinite(got).all()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dim,dtype", [(3, "float32"), (3, "bfloat16"), (16, "bfloat16")])
+def test_tnet_matches_jax(dim, dtype):
+    """The transform alone, [B, dim, dim] fp32, from a seeded transform_w
+    and BN statistics; transform_w keeps flax's layout (no transpose)."""
+    rng = np.random.RandomState(29)
+    x = rng.uniform(-1, 1, (2, 64, dim)).astype(np.float32)
+    jd = jnp.dtype(dtype)
+    jt = JTNet(dim, dtype=jd)
+    v = jt.init(jax.random.PRNGKey(3), jnp.asarray(x).astype(jd), False, 0.9)
+    v = {"params": _seeded_transforms(v["params"], rng),
+         "batch_stats": _seeded_stats(v["batch_stats"], rng)}
+    want = np.asarray(jt.apply(v, jnp.asarray(x).astype(jd), False, 0.9))
+    tt = TNet(dim, getattr(torch, dtype))
+    load_flat_variables(tt, flatten_variables(v["params"], v["batch_stats"]))
+    np.testing.assert_array_equal(tt.transform_w.detach().numpy(),
+                                  np.asarray(v["params"]["transform_w"]))
+    with torch.inference_mode():
+        got = tt(torch.tensor(x).to(getattr(torch, dtype)))
+    assert got.dtype == torch.float32 and got.shape == (2, dim, dim)
+    assert np.abs(want - np.eye(dim)).max() > 0.02  # the transform does work
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=FP32_TOL if dtype == "float32" else BF16_TOL, rtol=0)
+
+
+def test_pointnetvlad_full_width_params():
+    jm = j_get_model(jcfg.pointnetvlad_config())
+    v = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 3)),
+                                       train=False))
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(v["params"]))
+    assert n_jax == PNV_PARAMS
+    with torch.device("meta"):
+        assert param_count(PointNetVLAD(tcfg.pointnetvlad_config())) == PNV_PARAMS
+
+
+# The bf16 GEMM reduction check: JAX's descriptors of the default full-width
+# ModelConfig (bf16) at B=2, N=4096, from init_flat_variables(seed=0) and the
+# file's seeded clouds, computed on the CPU. tests/test_torch_cuda.py holds
+# the card's descriptors to it within BF16_TOL. Regenerate deliberately:
+#   PYTHONPATH=. python tests/test_torch_models.py regen-bf16
+BF16_FULLWIDTH = os.path.join(os.path.dirname(__file__), "torch_bf16_fullwidth.npz")
+# XLA's CPU sums may take another order on another CPU: the recomputation is
+# held to a tenth of BF16_TOL
+BF16_FULLWIDTH_REPRO_TOL = 2e-5
+
+
+def _unflatten(flat):
+    """flatten_variables' names -> the nested {"params", "batch_stats"} tree."""
+    tree = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(arr)
+    return tree
+
+
+def bf16_fullwidth_jax(seed=0):
+    x = np.random.default_rng(seed).uniform(-1, 1, (2, 4096, 3)).astype(np.float32)
+    flat = init_flat_variables(tcfg.ModelConfig(), seed=0)
+    jm = j_get_model(jcfg.ModelConfig())
+    fwd = jax.jit(lambda v, pts: jm.apply(v, pts, train=False))
+    return x, flat, np.asarray(fwd(_unflatten(flat), jnp.asarray(x)))
+
+
+def test_bf16_fullwidth_file_is_jax():
+    """The committed file is what JAX computes, and the port's CPU path
+    (the plain twins) lies within BF16_TOL of it."""
+    data = np.load(BF16_FULLWIDTH)
+    x, flat, want = bf16_fullwidth_jax(int(data["seed"]))
+    assert want.shape == data["descriptors"].shape == (2, 256)
+    np.testing.assert_allclose(want, data["descriptors"], atol=BF16_FULLWIDTH_REPRO_TOL,
+                               rtol=0)
+    m = get_model(tcfg.ModelConfig(), device="cpu")
+    load_flat_variables(m, flat)
+    with torch.inference_mode():
+        got = m(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, data["descriptors"], atol=BF16_TOL, rtol=0)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:] == ["regen-bf16"]:
+        jax.config.update("jax_platforms", "cpu")
+        np.savez(BF16_FULLWIDTH, descriptors=bf16_fullwidth_jax(0)[2], seed=np.int64(0))
+        print(f"wrote {BF16_FULLWIDTH}")

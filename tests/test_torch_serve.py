@@ -200,9 +200,9 @@ def test_ids_match_jax_place_index(jax_state, embed):
 
 
 def test_unported_modes_raise(embed):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         PlaceIndex(embed, sync_mode="background", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         PlaceIndex(embed, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         PlaceIndex(embed, quantize="int4", device="cpu")

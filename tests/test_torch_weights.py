@@ -16,7 +16,12 @@ from epcnet_tpu.train.state import create_train_state
 from epcnet_torch import configs as tcfg
 from epcnet_torch.models import get_model
 from epcnet_torch.serve import PlaceIndex
-from epcnet_torch.weights import init_flat_variables, load_export, load_flat_variables
+from epcnet_torch.weights import (
+    init_flat_variables,
+    load_export,
+    load_flat_variables,
+    save_export,
+)
 
 
 def _jax_flat_shapes(cfg, n):
@@ -29,21 +34,53 @@ def _jax_flat_shapes(cfg, n):
     return {k: a.shape for k, a in flat.items()}
 
 
-@pytest.mark.parametrize("name", ["epcnet", "epcnet_l"])
+_CONFIGS = {"epcnet": "ModelConfig", "epcnet_l": "epcnet_l_config",
+            "pointnetvlad": "pointnetvlad_config"}
+
+
+@pytest.mark.parametrize("name", ["epcnet", "epcnet_l", "pointnetvlad"])
 def test_init_flat_variables_naming(name):
     """Same names and shapes as a JAX init at the full published widths."""
-    jc = jcfg.epcnet_l_config() if name == "epcnet_l" else jcfg.ModelConfig()
-    tc = tcfg.epcnet_l_config() if name == "epcnet_l" else tcfg.ModelConfig()
+    jc, tc = getattr(jcfg, _CONFIGS[name])(), getattr(tcfg, _CONFIGS[name])()
     flat = init_flat_variables(tc, seed=3)
     assert {k: v.shape for k, v in flat.items()} == _jax_flat_shapes(jc, 256)
     assert all(v.dtype == np.float32 for v in flat.values())
     again = init_flat_variables(tc, seed=3)
     other = init_flat_variables(tc, seed=4)
     assert all(np.array_equal(flat[k], again[k]) for k in flat)
-    assert not np.array_equal(flat["params/gvlad/gate/kernel"],
-                              other["params/gvlad/gate/kernel"])
+    gate = f"params/{'netvlad' if name == 'pointnetvlad' else 'gvlad'}/gate/kernel"
+    assert not np.array_equal(flat[gate], other[gate])
     assert all(flat[k].min() > 0 for k in flat if k.endswith("/var"))
     assert any(np.abs(flat[k]).max() > 0 for k in flat if k.endswith("/mean"))
+    for tnet in ("input_tnet", "feature_tnet") if name == "pointnetvlad" else ():
+        w, b = flat[f"params/{tnet}/transform_w"], flat[f"params/{tnet}/transform_b"]
+        dim = int(np.sqrt(b.size))
+        assert 0 < np.abs(w).max() < 0.05 and w.shape == (256, dim * dim)
+        assert 0 < np.abs(b - np.eye(dim).ravel()).max() < 0.3  # near the identity
+
+
+def test_save_export_roundtrip(tmp_path):
+    """save_export writes export.py's pair: load_export reads back the
+    config and the arrays, and the manifest has export.py's keys."""
+    mc = tcfg.pointnetvlad_config(num_points=128, vlad_clusters=8, feature_dim=64,
+                                  pointnet_channels=(16, 16, 16, 32, 64))
+    cfg = tcfg.ExperimentConfig(model=mc, data=tcfg.DataConfig(num_points=128))
+    flat = init_flat_variables(mc, seed=1)
+    base = str(tmp_path / "run" / "export")
+    save_export(base, cfg, flat, step=7)
+    got_cfg, got = load_export(base)
+    assert got_cfg == cfg and list(got) == list(flat)
+    assert all(np.array_equal(got[k], flat[k]) for k in flat)
+    with open(base + ".json") as f:
+        manifest = json.load(f)
+    assert set(manifest) == {"framework", "step", "config", "leaves"}
+    assert manifest["step"] == 7 and manifest["leaves"][0] == {
+        "name": next(iter(flat)), "shape": list(next(iter(flat.values())).shape),
+        "dtype": "float32"}
+    assert jcfg.ExperimentConfig.from_json(json.dumps(manifest["config"])).model.name \
+        == "pointnetvlad"
+    m = get_model(mc, device="cpu")
+    load_flat_variables(m, got)
 
 
 def test_load_flat_variables_rejects_bad_input():
