@@ -5,10 +5,10 @@
 
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
-``knn_phase.cu``, K6 ``knn_pipelined.cu``; K1, K2 and K3 on the tiled core
-``knn_tile.cuh`` for k <= 32; the ptxas report of every tiled kernel and of
-K4 must show no spill), holds each against its plain PyTorch version on the
-card, builds the full-width EPC-Net
+``knn_phase.cu``, K6 ``knn_pipelined.cu``; K1-K3, K5 and K6 on the tiled
+core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the ptxas report of every
+tiled kernel and of K4 must show no spill), holds each against its plain
+PyTorch version on the card, builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
 
@@ -39,10 +39,12 @@ reduction allowed and not.
 
 Then the kNN trace path (``epcnet_torch.scripts.knn_trace``), counts zeroed
 before it: a profiler trace of B=8 forwards at N=4096, the phase ablation
-(K5 after 1 and k rounds and the threshold count, then K1) and K6 against
-K1; and the ablation once more at B=2, N=32768, where xyz is read from
-global memory, and at B=2 either side of K5's shared-memory cutoff (N=16384
-and N=20480).
+(K5 after 1 and k distinct values and the threshold count, then K1; all on
+the tiled core at k=20, which the counts and ``phase_cores`` must show) and
+K6 against K1; then the ablation at B=32, N=4096 (the serving batch) and
+B=2, N=32768 (the packed route's), and at k=33, where K5's value rounds
+still run, at B=2 either side of their shared-memory cutoff (N=16384 and
+N=20480).
 
 Output: progress lines with each phase's seconds, then a ``{"kernels":
 [...]}`` line, timing lines, the card's name and power limit, and as the last
@@ -106,7 +108,9 @@ COUNTERS = {
     "K3 k>32": (knn.knn_packed_cuda, "launches_rounds"),
     "K4": (adjacency.packed_neighbor_mean_cuda, "launches"),
     "K5": (knn_phases.knn_phase_cuda, "launches"),
+    "K5 r>32": (knn_phases.knn_phase_cuda, "launches_rounds"),
     "K6": (knn_phases.knn_adjacency_pipelined_cuda, "launches"),
+    "K6 k>32": (knn_phases.knn_adjacency_pipelined_cuda, "launches_rounds"),
 }
 
 
@@ -278,36 +282,68 @@ def check_k4(f, planes, k, dtype) -> float:
     return float(err.max())
 
 
-def check_k5(x, rounds, thresh):
+def check_k5(x, rounds, thresh, splits=()):
     """K5 against its plain version: exactly equal (the same fp32 arithmetic
     on the card; +inf where the row has fewer than ``rounds`` distinct
-    values). Returns K5's output and the max abs difference (0 where both
-    are +inf)."""
+    values); the value rounds run only for rounds > 32; then with each of
+    ``splits`` threads a row forced on the tiled core, exactly equal too.
+    Returns K5's output and the max abs difference (0 where both are +inf)."""
+    before = knn_phases.knn_phase_cuda.launches_rounds
     got = knn_phases.knn_phase_cuda(x, rounds, thresh)
+    assert knn_phases.knn_phase_cuda.launches_rounds - before == (rounds > 32), (rounds, "core")
     want = knn_phases.knn_phase_plain(x, rounds, thresh)
     torch.cuda.synchronize()
+    case = f"B,N={tuple(x.shape[:2])}, rounds={rounds}, thresh={thresh}"
     err = float(torch.where(got == want, 0.0, (got - want).abs()).max())
     bad = int((got != want).sum())
-    assert bad == 0, f"K5 differs in {bad} rows (B,N={tuple(x.shape[:2])}, rounds={rounds}, " \
-        f"thresh={thresh}; max abs err {err})"
+    assert bad == 0, f"K5 differs in {bad} rows ({case}; max abs err {err})"
+    for split in splits if rounds <= 32 else ():
+        got_s, ran_rounds = knn_phases._launch_phase(x, rounds, thresh, split)
+        assert not ran_rounds, f"a forced S ran the value rounds ({case})"
+        torch.cuda.synchronize()
+        assert torch.equal(got_s, want), f"K5 differs at S={split} ({case})"
     return got, err
 
 
-def check_k6(x, k) -> float:
+def check_k6(x, k, splits=()) -> float:
     """K6 against its plain version: the indicator exactly equal, and equal
     to K1's; the fp32 proxy within 1e-6 relative (an fp32 sum of bf16 values
-    in another order than cuBLAS's). Returns the proxy's max abs difference."""
+    in another order than cuBLAS's); the warp pairs run only for k > 32;
+    then with each of ``splits`` threads a row forced on the tiled core, the
+    indicator and the proxy equal the wrapper's. Returns the proxy's max abs
+    difference."""
+    before = knn_phases.knn_adjacency_pipelined_cuda.launches_rounds
     adj, proxy = knn_phases.knn_adjacency_pipelined_cuda(x, k)
+    assert knn_phases.knn_adjacency_pipelined_cuda.launches_rounds - before == (k > 32), \
+        (k, "design")
     adj_p, proxy_p = knn_phases.knn_adjacency_pipelined_plain(x, k)
     torch.cuda.synchronize()
     shape = tuple(x.shape[:2])
     assert torch.equal(adj, adj_p), f"K6 indicator differs (B,N,k={shape},{k})"
+    del adj_p
     assert torch.equal(adj, knn.knn_adjacency_cuda(x, k, with_proxy=False)[0]), \
         f"K6 indicator differs from K1's (B,N,k={shape},{k})"
     assert proxy.dtype == torch.float32
     err = (proxy - proxy_p).abs()
     assert bool((err <= 1e-6 * proxy_p.abs() + 1e-7).all()), f"K6 proxy error {err.max()}"
+    for split in splits if k <= 32 else ():
+        adj_s, proxy_s, ran_pairs = knn_phases._launch_pipelined(x, k, split)
+        assert not ran_pairs, f"a forced S ran the warp pairs (k={k})"
+        torch.cuda.synchronize()
+        assert torch.equal(adj_s, adj) and torch.equal(proxy_s, proxy), \
+            f"K6 differs at S={split} (B,N,k={shape},{k})"
+        del adj_s
     return float(err.max())
+
+
+def misaligned(x):
+    """x stored 4 bytes past a 16-byte boundary: K6's bulk copies then take
+    a head and a tail of plain loads in every tile."""
+    buf = torch.empty(x.numel() + 1, dtype=torch.float32, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 4
+    return out
 
 
 def evaluate_phase(embed, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
@@ -490,7 +526,10 @@ def main() -> int:
     # tiled core's at S = 1, 2, 4, 8 and its two list sizes (K2; K1 and K3),
     # and K4 for 2 x 2 dtypes and 4 channel widths
     watched = {"knn_ids": ("tiled_kernel", 8), "knn_adj": ("tiled_kernel", 16),
-               "packed_mean": ("packed_mean_kernel", 16)}
+               "packed_mean": ("packed_mean_kernel", 16),
+               # K5: S x 2 list sizes x with and without the count; K6: S x 2 lists
+               "knn_phase": ("phase_tiled_kernel", 16),
+               "knn_pipelined": ("pipelined_tiled_kernel", 8)}
     spills = {}
     for src, (part, count) in watched.items():
         if src in reports:
@@ -501,7 +540,7 @@ def main() -> int:
     dense = sum("dense_tiled" in name for name in spills)
     assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
     log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
-        "them K1's, and K4's)" if spills else
+        "them K1's, K5's and K6's on it, and K4's)" if spills else
         "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
@@ -624,31 +663,65 @@ def main() -> int:
     with Phase("K5/K6 check"):
         # x8 is the trace's batch (knn_trace.clouds(8, n), seed 0)
         assert torch.equal(x8.cpu(), torch.from_numpy(knn_trace.clouds(8, n)))
-        dyadic = torch.round(cloud(2, n) * 8) / 8  # exact distances, ties in every row
+        dyadic = torch.round(cloud(2, n) * 8) / 8  # exact distances, ties across tiles
         few = torch.round(cloud(1, 1000))  # coordinates in {-1, 0, 1}: 10 distinct values
-        cases = [(x8, k), (dyadic, k), (cloud(2, 1001), k), (cloud(2, 40), k),
-                 (few, k), (cloud(1, 20000), k)]  # the last: xyz in global memory
-        # the ablation's other batches, B=2: either side of K5's shared-memory
-        # cutoff (N ~18,700) and the packed route's batch; K5 alone (K6 takes
-        # N up to ~27,700)
+        same = torch.full((1, 3000, 3), 0.25, device=dev)  # identical points
+        xs4k = x_sorted(cloud(2, n))  # scan order
+        # rounds around both list sizes (24, 32) and one past: the value rounds
+        k5_rounds = (1, k, 24, 25, 32, 33)
+        k5_cases = [x8, cloud(2, 1024), cloud(2, 1025), cloud(1, 4097), dyadic, few, same,
+                    xs4k, x_pack]  # x_pack: the packed route's B=2, N=32768
+        err_k5 = 0.0
+        for x in k5_cases:
+            for rounds in k5_rounds:
+                for thresh in (False, True):
+                    err_k5 = max(err_k5, check_k5(x, rounds, thresh, splits)[1])
+        for rounds in (1, k):  # x32: the serving batch, whose ablation line is timed
+            for thresh in (False, True):
+                err_k5 = max(err_k5, check_k5(x32, rounds, thresh, splits)[1])
+        got, _ = check_k5(few, k, True)
+        assert bool(torch.isinf(got).all()), "fewer than 20 distinct values: +inf"
+        got, _ = check_k5(cloud(2, 40), 41, True)  # more rounds than points
+        assert bool(torch.isinf(got).all())
+        # the k=33 ablation's batches, either side of the value rounds'
+        # shared-memory cutoff (N ~18,700)
         x16k, x20k = cloud(2, 16384), cloud(2, 20480)
         smem = {npts: knn_phases.xyz_in_shared_memory(npts) for npts in (16384, 20480, 32768)}
         assert smem == {16384: True, 20480: False, 32768: False}, smem
-        err_k5 = 0.0
-        for x in [c for c, _ in cases] + [x16k, x20k, x_pack]:
-            for rounds in (1, k):
+        for x in (x16k, x20k):
+            for rounds in (1, 33):
                 for thresh in (False, True):
                     err_k5 = max(err_k5, check_k5(x, rounds, thresh)[1])
-        for x, rounds in ((cloud(2, 40), 41), (few, k)):  # more rounds than values
-            got, e = check_k5(x, rounds, True)
-            assert bool(torch.isinf(got).all())
-            err_k5 = max(err_k5, e)
-        err_k6 = max(check_k6(x, kk) for x, kk in cases + [(cloud(1, 33), 33)])
         torch.cuda.empty_cache()
-    log(f"phase K5/K6 check: ok (K5 exact on {len(cases) + 3} clouds up to B=2, N=32768 "
-        f"x 4 phases and 2 +inf cases, max abs err {err_k5}; xyz in shared memory {smem}; "
-        f"K6 indicator exact and equal to K1's on {len(cases) + 1} cases, proxy max abs "
-        f"err {err_k6})")
+        # K6: the tiled pipeline at every S for k <= 32, the warp pairs at k = 33
+        k6_cases = [x8, dyadic, cloud(2, 1001), cloud(2, 1025), cloud(2, 4097), same, xs4k,
+                    misaligned(cloud(2, 1001)), misaligned(x8)]
+        err_k6 = 0.0
+        for x in k6_cases:
+            for kk in (k, 32, 33):
+                err_k6 = max(err_k6, check_k6(x, kk, splits))
+        err_k6 = max(err_k6, check_k6(cloud(1, 33), 33))  # k = N
+        # the warp pairs with xyz read from global memory (past N ~11,200,
+        # where it no longer fits beside one pair's rows)
+        err_k6 = max(err_k6, check_k6(cloud(1, 20000), 33))
+        err_k6 = max(err_k6, check_k6(x32, k))  # the serving batch, timed below
+        x1_32k = cloud(1, 32768)  # past the warp pairs' N limit (~27,700)
+        for kk in (k, 32):
+            err_k6 = max(err_k6, check_k6(x1_32k, kk, splits))
+        try:
+            knn_phases.knn_adjacency_pipelined_cuda(x1_32k, 33)
+            raise AssertionError("K6 took k=33 past the warp pairs' shared memory")
+        except ValueError:
+            pass
+        del x1_32k
+        torch.cuda.empty_cache()
+    log(f"phase K5/K6 check: ok (K5 exact on {len(k5_cases)} clouds up to B=2, N=32768 at "
+        f"rounds {k5_rounds}, with and without the count, on the tiled core at S = 1, 2, "
+        f"4 and 8 too, the value rounds at 33, at B=32 (rounds 1 and {k}, every S), and at "
+        f"N=16384 and 20480; max abs err {err_k5}; value rounds' xyz in shared memory "
+        f"{smem}; K6 indicator exact and equal to K1's on {len(k6_cases) + 4} clouds up to "
+        f"N=32768 at k = 20, 32 (at every S) and 33 (up to N=20000), and at B=32, proxy max "
+        f"abs err {err_k6})")
 
     # -- 6. the full-width model from seeded weights -----------------------
     with Phase("model"):
@@ -767,8 +840,11 @@ def main() -> int:
         assert trace["pipelined"]["adj_exact"], trace["pipelined"]
         assert trace["pipelined"]["proxy_within_1e-6_rel"], trace["pipelined"]
         assert trace["trace"]["ranked_by"] == "device", trace["trace"]["ranked_by"]
-        assert trace["phase_cores"]["D (K1)"] == "tiled", trace["phase_cores"]
+        assert trace["phase_cores"] == {"A-C (K5)": "tiled", "D (K1)": "tiled"}, \
+            trace["phase_cores"]
         assert all(trace_counts[name] >= 1 for name in ("K1", "K5", "K6")), trace_counts
+        # k=20: every K5 and K6 launch of the path ran on the tiled core
+        assert trace_counts["K5 r>32"] == 0 and trace_counts["K6 k>32"] == 0, trace_counts
         # the model's kNN span holds K1 alone: its device time a forward is
         # phase D's, which the span attribution (region_ms) must reproduce
         span = trace["trace"]["regions_ms"]["epcnet/knn_graph"]
@@ -776,14 +852,23 @@ def main() -> int:
         d_ms = trace["phase_ms_per_batch"]["D_full_shipped"]
         assert span["count"] == trace["trace"]["forwards"], span
         assert abs(span_ms / d_ms - 1) <= 0.2, (span_ms, d_ms)
-        # the batches K5 was held against its plain version on
-        abl32 = knn_trace.phase_ablation(x_pack, k)  # the packed route's batch
-        log(json.dumps({"knn_ablation_b2_n32768": abl32}))
-        # either side of K5's shared-memory cutoff: what reading xyz from
+        # the tiled core's phases at the serving batch and at the packed
+        # route's batch, the batches K5 was held against its plain version on
+        abl32 = knn_trace.phase_ablation(x32, k)
+        log(json.dumps({"knn_ablation_b32_n4096": abl32}))
+        abl_pack = knn_trace.phase_ablation(x_pack, k)
+        log(json.dumps({"knn_ablation_b2_n32768": abl_pack}))
+        for abl in (abl32, abl_pack):
+            assert abl["phase_cores"] == {"A-C (K5)": "tiled", "D (K1)": "tiled"}, abl
+        # k=33: the value rounds (B-D; A's one value is on the tiled core)
+        # either side of their shared-memory cutoff: what reading xyz from
         # global memory costs each phase
-        regimes = [dict(knn_trace.phase_ablation(x, k), k5_xyz_in_shared_memory=smem[npts])
+        regimes = [dict(knn_trace.phase_ablation(x, 33), k5_xyz_in_shared_memory=smem[npts])
                    for npts, x in ((16384, x16k), (20480, x20k))]
-        log(json.dumps({"knn_ablation_regimes": regimes}))
+        for abl in regimes:
+            assert abl["phase_cores"] == {"A-C (K5)": "A tiled, B-C value rounds",
+                                          "D (K1)": "value rounds"}, abl
+        log(json.dumps({"knn_ablation_regimes_k33": regimes}))
         torch.cuda.empty_cache()
     log(f"phase knn trace: K6 verdict {trace['pipelined']['verdict']}; kNN span "
         f"{span_ms} ms a forward against phase D {d_ms} ms; launches {trace_counts}")
@@ -886,6 +971,8 @@ def main() -> int:
         # the tiled core at K1's shape, B=32, N=4096: a reading for K1's future
         tiled_b32 = {"k1_ms": ms32, "k2_ids_ms": cuda_ms(lambda: knn.knn_cuda(x32, k), 20),
                      "k3_ms": cuda_ms(lambda: knn.knn_packed_cuda(x32, k, bf16), 20),
+                     "k6_ms": cuda_ms(lambda: knn_phases.knn_adjacency_pipelined_cuda(x32, k),
+                                      20),
                      "shape": [32, n, 3], "k": k}
 
         # K4: layers 1-3 of the packed route, B=2, N=32768, C=64, bf16
@@ -904,7 +991,7 @@ def main() -> int:
               "mask with F, fp32 sum (the dense route's layer product; unpack not timed)")
 
         # K5 and K6: the trace path's shape, B=8, N=4096; their times are the
-        # trace phase's (K5: phase C, k rounds and the threshold count)
+        # trace phase's (K5: phase C, k distinct values and the count)
         plain_k5 = cuda_ms(lambda: knn_phases.knn_phase_plain(x8, k, True), 3)
         entry("knn_phase", "knn_phase.cu", "scripts/hw_knn_trace.py:83", trace_counts["K5"],
               err_k5, trace["phase_ms_per_batch"]["C_plus_threshold"], plain_k5,
@@ -912,7 +999,26 @@ def main() -> int:
         plain_k6 = cuda_ms(lambda: knn_phases.knn_adjacency_pipelined_plain(x8, k), 3)
         entry("knn_pipelined", "knn_pipelined.cu", "scripts/hw_knn_trace.py:162",
               trace_counts["K6"], err_k6, trace["pipelined"]["pipelined_ms_per_batch"],
-              plain_k6, xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 4, 8 * 8 * n * n, [8, n, 3], "K6")
+              plain_k6, xyz_bytes(x8) + 8 * n * n + 8 * n * 3 * 4, 8 * 8 * n * n, [8, n, 3], "K6",
+              k1_same_process_ms=trace["pipelined"]["shipped_ms_per_batch_same_process"])
+        # more than 32 rounds / neighbours: the first designs, on the checked x33
+        entry("knn_phase (rounds > 32)", "knn_phase.cu", "scripts/hw_knn_trace.py:83",
+              trace_counts["K5 r>32"], check_k5(x33, 33, True)[1],
+              cuda_ms(lambda: knn_phases.knn_phase_cuda(x33, 33, True), 5),
+              cuda_ms(lambda: knn_phases.knn_phase_plain(x33, 33, True), 3),
+              xyz_bytes(x33) + 2 * n * 4, 8 * 2 * n * n, [2, n, 3], "K5 r>32", rounds=33,
+              thresh=True)
+        entry("knn_pipelined (k > 32)", "knn_pipelined.cu", "scripts/hw_knn_trace.py:162",
+              trace_counts["K6 k>32"], check_k6(x33, 33),
+              cuda_ms(lambda: knn_phases.knn_adjacency_pipelined_cuda(x33, 33), 5),
+              cuda_ms(lambda: knn_phases.knn_adjacency_pipelined_plain(x33, 33), 3),
+              xyz_bytes(x33) + 2 * n * n + 2 * n * 3 * 4, 8 * 2 * n * n, [2, n, 3], "K6 k>32",
+              k=33)
+        # K5 (phase C) and K6 at each split S at the trace's batch (0: the rule's)
+        k5_splits = {s_: cuda_ms(lambda: knn_phases._launch_phase(x8, k, True, s_), 20)
+                     for s_ in (0, 1, 2, 4, 8)}
+        k6_splits = {s_: cuda_ms(lambda: knn_phases._launch_pipelined(x8, k, s_), 20)
+                     for s_ in (0, 1, 2, 4, 8)}
 
         # the routes: one embed batch each, by CUDA events (mean of 3)
         route_ms = []
@@ -946,7 +1052,9 @@ def main() -> int:
     log(json.dumps({"k2_n131072": {"ms": ms_k2_131, "bound_ms": b131[0],
                                    "bound_by": b131[1], "shape": [1, 131072, 3], "k": k}}))
     log(json.dumps({"tiled_splits": {"k2_b1_n65536": k2_splits, "k3_b2_n32768": k3_splits,
-                                     "k2_b1_n4096": k2_splits_n4096, **k1_splits, "k": k}}))
+                                     "k2_b1_n4096": k2_splits_n4096, **k1_splits,
+                                     "k5_c_b8_n4096": k5_splits, "k6_b8_n4096": k6_splits,
+                                     "k": k}}))
     log(json.dumps({"tiled_b32_n4096": tiled_b32}))
     log(json.dumps({"routes": route_ms}))
     log(json.dumps({"serve": {"embed_batch32_ms": embed_ms,

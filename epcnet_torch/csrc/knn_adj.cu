@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(kt::kThreads, 2)
   const int rows = min(kt::rows_per_block(S), n - row0);
   const size_t r0 = static_cast<size_t>(b) * n + row0;
   int8_t* a = static_cast<int8_t*>(adj) + r0 * n;
-  kt::zero_bytes(a, static_cast<size_t>(rows) * n);
+  kt::zero_bytes(a, static_cast<size_t>(rows) * n, threadIdx.x, kt::kThreads);
   __syncthreads();  // the zeros land before the ones
   for (int e = threadIdx.x; e < rows * k; e += kt::kThreads)
     a[static_cast<size_t>(e / k) * n + oj[e]] = 1;
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(kt::kThreads, 2)
   }
   const size_t r0 = static_cast<size_t>(b) * n + row0;
   uint32_t* p = static_cast<uint32_t*>(adj) + r0 * w_words;
-  kt::zero_bytes(p, static_cast<size_t>(rows) * w_words * 4);
+  kt::zero_bytes(p, static_cast<size_t>(rows) * w_words * 4, threadIdx.x, kt::kThreads);
   __syncthreads();  // the keys are in place and the zeros land before the words
   for (int e = threadIdx.x; e < rows * k; e += kt::kThreads) {
     const int* rk = key + (e / k) * k;

@@ -1,7 +1,7 @@
-// The warp-per-row selection core (the value rounds) of K5 and K6, and of
-// K1, K2 and K3 for k above knn_tile.cuh's register list (kMaxK); K1, K2 and
-// K3 at k <= kMaxK (the model's k = 20) run on knn_tile.cuh, which gives the
-// same winners in the same order.
+// The warp-per-row selection core (the value rounds) of K1, K2, K3 and K5
+// for k above knn_tile.cuh's register list (kMaxK), and the helpers of K6's
+// warp pairs; at k <= kMaxK (the model's k = 20) they run on knn_tile.cuh,
+// which gives the same winners in the same order.
 //
 // Per cloud b and query row i (N points, 1 <= k <= N):
 //   d[i, j] = ((0 + dx*dx) + dy*dy) + dz*dz in fp32, each product and sum

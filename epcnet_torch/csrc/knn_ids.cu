@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(kt::kThreads, 2)
   }
   if (adj != nullptr) {
     int8_t* a = adj + (static_cast<size_t>(b) * n + row0) * n;
-    kt::zero_bytes(a, static_cast<size_t>(rows) * n);
+    kt::zero_bytes(a, static_cast<size_t>(rows) * n, threadIdx.x, kt::kThreads);
     __syncthreads();  // the zeros land before the ones
     for (int e = threadIdx.x; e < rows * k; e += kt::kThreads)
       a[static_cast<size_t>(e / k) * n + oj[e]] = 1;

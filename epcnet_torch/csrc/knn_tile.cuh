@@ -1,5 +1,7 @@
 // The tiled selection core of K1, K2 and K3 (knn_adj.cu, knn_ids.cu):
-// exact (distance, index) kNN for k <= kMaxK, built for Hopper.
+// exact (distance, index) kNN for k <= kMaxK, built for Hopper. K5
+// (knn_phase.cu) runs its phase prefix and K6 (knn_pipelined.cu) its
+// selection fed by a producer warp, from the parts below.
 //
 // Per cloud b and query row i (N points, 1 <= k <= min(N, kMaxK)), the same
 // result as knn_core.cuh's select_k:
@@ -162,10 +164,35 @@ __device__ __forceinline__ void flush(Sel<L>& s, const float* qd, const int* qj)
   s.thr = fminf(s.ld[L - 1], s.cap);
 }
 
-// Queue this thread's columns base + m (m = part, part + S, ... < cnt) of
-// the tile that pass the threshold. Every lane of the warp runs the same
-// iterations (the flush check is a warp vote); kWhole: cnt == kTile. One
+// Queue the group's distances d[u], of columns j0 + u * S, that pass the
+// threshold; then, when some lane's queue could overflow (a warp vote:
+// every lane of the warp calls it as often), flush the warp's queues. One
 // compare of the group's least distance rejects a whole group.
+template <int S, int L>
+__device__ __forceinline__ void queue_group(Sel<L>& s, float* qd, int* qj,
+                                            const float (&d)[kGroup], int j0) {
+  float dmin[kGroup / 2];
+#pragma unroll
+  for (int u = 0; u < kGroup / 2; ++u) dmin[u] = fminf(d[2 * u], d[2 * u + 1]);
+#pragma unroll
+  for (int w = kGroup / 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int u = 0; u < w; ++u) dmin[u] = fminf(dmin[2 * u], dmin[2 * u + 1]);
+  if (dmin[0] < s.thr) {
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      if (d[u] < s.thr) {
+        qd[s.qn * kThreads + threadIdx.x] = d[u];
+        qj[s.qn * kThreads + threadIdx.x] = j0 + u * S;
+        ++s.qn;
+      }
+    }
+  }
+  if (__any_sync(knn_core::kFull, s.qn > kQueue - kGroup)) flush(s, qd, qj);
+}
+
+// Queue this thread's columns base + m (m = part, part + S, ... < cnt) of
+// the tile that pass the threshold; kWhole: cnt == kTile.
 template <int S, int L, bool kWhole>
 __device__ __forceinline__ void scan_tile(Sel<L>& s, float* qd, int* qj, const float* tile,
                                           int base, int cnt, int part, float qx, float qy,
@@ -182,24 +209,7 @@ __device__ __forceinline__ void scan_tile(Sel<L>& s, float* qd, int* qj, const f
                  ? sqdist_tile(qx, qy, qz, tile, kWhole ? m : min(m, cnt - 1))
                  : __int_as_float(0x7f800000);
     }
-    float dmin[kGroup / 2];
-#pragma unroll
-    for (int u = 0; u < kGroup / 2; ++u) dmin[u] = fminf(d[2 * u], d[2 * u + 1]);
-#pragma unroll
-    for (int w = kGroup / 4; w > 0; w >>= 1)
-#pragma unroll
-      for (int u = 0; u < w; ++u) dmin[u] = fminf(dmin[2 * u], dmin[2 * u + 1]);
-    if (dmin[0] < s.thr) {
-#pragma unroll
-      for (int u = 0; u < kGroup; ++u) {
-        if (d[u] < s.thr) {
-          qd[s.qn * kThreads + threadIdx.x] = d[u];
-          qj[s.qn * kThreads + threadIdx.x] = base + m0 + u * S + part;
-          ++s.qn;
-        }
-      }
-    }
-    if (__any_sync(knn_core::kFull, s.qn > kQueue - kGroup)) flush(s, qd, qj);
+    queue_group<S, L>(s, qd, qj, d, base + m0 + part);
   }
 }
 
@@ -210,6 +220,50 @@ __device__ __forceinline__ void scan_any(Sel<L>& s, float* qd, int* qj, const fl
   const int cnt = n - base < kTile ? n - base : kTile;
   if (cnt == kTile) scan_tile<S, L, true>(s, qd, qj, tile, base, cnt, part, qx, qy, qz);
   else scan_tile<S, L, false>(s, qd, qj, tile, base, cnt, part, qx, qy, qz);
+}
+
+// This thread's k real slots into ls_d / ls_j, [kThreads][k].
+template <int L>
+__device__ __forceinline__ void store_list(const Sel<L>& s, int k, float* ls_d, int* ls_j) {
+  const int off = L - k;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (i >= off) {
+      ls_d[threadIdx.x * k + i - off] = s.ld[i];
+      ls_j[threadIdx.x * k + i - off] = s.lj[i];
+    }
+  }
+}
+
+// The S lists ls_d / ls_j of the row whose first thread is threadIdx.x,
+// merged by lex_less into row threadIdx.x / S of od / oj, [rows][k].
+template <int S>
+__device__ __forceinline__ void merge_lists(const float* ls_d, const int* ls_j, int k,
+                                            float* od, int* oj) {
+  const int tid = threadIdx.x;
+  const int r_local = tid / S;
+  int head[S];
+#pragma unroll
+  for (int p = 0; p < S; ++p) head[p] = 0;
+  for (int r = 0; r < k; ++r) {
+    float bd = __int_as_float(0x7f800000);
+    int bj = INT_MAX, bp = 0;
+#pragma unroll
+    for (int p = 0; p < S; ++p) {
+      if (head[p] < k) {
+        const int e = (tid + p) * k + head[p];
+        if (lex_less(ls_d[e], ls_j[e], bd, bj)) {
+          bd = ls_d[e];
+          bj = ls_j[e];
+          bp = p;
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < S; ++p) head[p] += p == bp;
+    od[r_local * k + r] = bd;
+    oj[r_local * k + r] = bj;
+  }
 }
 
 // The k winners of rows row0 .. row0 + kThreads / S - 1 of cloud xb [n, 3]
@@ -268,16 +322,9 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ xb, int n,
   __syncthreads();  // every queue is drained: the lists overwrite them
 
   // each thread's list, its k real slots: [kThreads][k]
-  const int off = L - k;
   float* ls_d = reinterpret_cast<float*>(smem);
   int* ls_j = reinterpret_cast<int*>(smem + static_cast<size_t>(kThreads) * k * 4);
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    if (i >= off) {
-      ls_d[tid * k + i - off] = s.ld[i];
-      ls_j[tid * k + i - off] = s.lj[i];
-    }
-  }
+  store_list(s, k, ls_d, ls_j);
   __syncthreads();
   if constexpr (S == 1) {
     od = ls_d;
@@ -286,46 +333,23 @@ __device__ __forceinline__ void select_rows(const float* __restrict__ xb, int n,
     // the S lists of a row, merged by its first thread
     od = reinterpret_cast<float*>(smem + merged_offset(k));
     oj = reinterpret_cast<int*>(od + rows_per_block(S) * k);
-    if (part == 0 && live) {
-      const int r_local = tid / S;
-      int head[S];
-#pragma unroll
-      for (int p = 0; p < S; ++p) head[p] = 0;
-      for (int r = 0; r < k; ++r) {
-        float bd = __int_as_float(0x7f800000);
-        int bj = INT_MAX, bp = 0;
-#pragma unroll
-        for (int p = 0; p < S; ++p) {
-          if (head[p] < k) {
-            const int e = (tid + p) * k + head[p];
-            if (lex_less(ls_d[e], ls_j[e], bd, bj)) {
-              bd = ls_d[e];
-              bj = ls_j[e];
-              bp = p;
-            }
-          }
-        }
-#pragma unroll
-        for (int p = 0; p < S; ++p) head[p] += p == bp;
-        od[r_local * k + r] = bd;
-        oj[r_local * k + r] = bj;
-      }
-    }
+    if (part == 0 && live) merge_lists<S>(ls_d, ls_j, k, od, oj);
     __syncthreads();
   }
 }
 
-// Zero `bytes` bytes at p with the whole block: byte stores up to 16-byte
-// alignment, then uint4 stores, then the tail.
-__device__ __forceinline__ void zero_bytes(void* p, size_t bytes) {
+// Zero `bytes` bytes at p with `threads` threads, this one `first` of
+// them: byte stores up to 16-byte alignment, then uint4 stores, then the
+// tail.
+__device__ __forceinline__ void zero_bytes(void* p, size_t bytes, int first, int threads) {
   unsigned char* c = static_cast<unsigned char*>(p);
   size_t head = (16 - (reinterpret_cast<uintptr_t>(c) & 15)) & 15;
   if (head > bytes) head = bytes;
-  for (size_t i = threadIdx.x; i < head; i += kThreads) c[i] = 0;
+  for (size_t i = first; i < head; i += threads) c[i] = 0;
   const size_t chunks = (bytes - head) >> 4;
   uint4* v = reinterpret_cast<uint4*>(c + head);
-  for (size_t i = threadIdx.x; i < chunks; i += kThreads) v[i] = make_uint4(0u, 0u, 0u, 0u);
-  for (size_t i = head + 16 * chunks + threadIdx.x; i < bytes; i += kThreads) c[i] = 0;
+  for (size_t i = first; i < chunks; i += threads) v[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (size_t i = head + 16 * chunks + first; i < bytes; i += threads) c[i] = 0;
 }
 
 // A row's S from the launch size: the largest S in {1, 2, 4, 8} that keeps

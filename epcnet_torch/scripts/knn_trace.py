@@ -16,22 +16,33 @@ Three measurements, in one process, on B seeded uniform clouds:
 2. Phase ablation. K5 (``csrc/knn_phase.cu``) stopped after successive
    phases of the selection, and K1 in full:
 
-     A_slab_1round     1 value round             slab_plus_fixed = A
-     B_slab_krounds    k value rounds            value_rounds = B - A
-     C_plus_threshold  k rounds + the count      threshold_count = C - B
-     D_full_shipped    K1 (``knn_adjacency``)    selection_tail_write_proxy = D - C
+     A_slab_1round     the scan, 1 distinct value      slab_plus_fixed = A
+     B_slab_krounds    the scan, k distinct values     value_rounds = B - A
+     C_plus_threshold  k values + the count            threshold_count = C - B
+     D_full_shipped    K1 (``knn_adjacency``)          selection_tail_write_proxy = D - C
 
    The JAX script calls the last share ``trim_adjwrite_proxy``. K1 on the
-   card has no trim, hence the other name. Phases A-C measure the value
-   rounds (``csrc/knn_core.cuh``), which K1 runs only for k > 32; at the
-   model's k = 20 phase D, the shipped K1, runs the tiled core
-   (``csrc/knn_tile.cuh``), so D - C is then the difference of two cores,
-   not a tail of one. ``phase_cores`` says which core each phase ran (D's
-   as K1 reported it; "plain" on the CPU).
-3. K6 (``csrc/knn_pipelined.cu``) against K1. K6's indicator must equal K1's
-   and its fp32 proxy its plain version's within 1e-6 relative; then both
-   are timed, in turns. ``verdict`` is "faster" if K6 is exact and under
-   0.97 x K1, else "rejected" (the JAX script's rule).
+   card has no trim, hence the other name. For k <= 32 K5 runs the phase
+   prefix of the tiled core that K1 runs (``csrc/knn_tile.cuh``: the same
+   block, tiles, threads a row, threshold and queue), with a list of
+   distinct values where K1 keeps (d, j). So A is the slab and the scan
+   (the cloud streamed through shared memory, every distance, the
+   threshold compare, and the flushes of a 1-value list on 24 register
+   slots, 23 of them fixed); B - A what selecting k distinct values adds;
+   C - B the count, carried beside each value (phase B carries none); and
+   D - C the tail of one core: K1's (d, j) merge of the S lists, the
+   indicator write and the proxy. For k > 32 both kernels run the value
+   rounds (``csrc/knn_core.cuh``), except A, whose 1 round is always on the
+   tiled core. ``phase_cores`` says which core each phase ran, as the
+   kernels' C entries reported it ("plain" on the CPU).
+3. K6 (``csrc/knn_pipelined.cu``) against K1. For k <= 32 K6 is K1's
+   tiled selection fed by a producer warp (bulk copies into a ring of
+   stages, no block barrier a tile) that also zeroes the indicator while
+   the consumers select: it tests load latency, the per-tile barrier and
+   the serial zero-fill against K1 on the same cloud. K6's indicator must
+   equal K1's and its fp32 proxy its plain version's within 1e-6 relative;
+   then both are timed, in turns. ``verdict`` is "faster" if K6 is exact
+   and under 0.97 x K1, else "rejected" (the JAX script's rule).
 
 The result is printed as one JSON line and written to ``--out``. On the card
 every time is a mean over launches by CUDA events (``cuda_ms``). With
@@ -57,6 +68,7 @@ from epcnet_torch.ops.knn_phases import (
     knn_adjacency_pipelined,
     knn_adjacency_pipelined_plain,
     knn_phase,
+    knn_phase_cuda,
 )
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.utils.profiling import region_ms, start_trace, top_device_ops
@@ -104,6 +116,14 @@ def trace_forward(cfg: ModelConfig, x: torch.Tensor, trace_dir: str) -> dict:
             "forward_ms": _time_ms(x.device)(lambda: embed(x), 3)}
 
 
+def _core(fn, counter) -> str:
+    """The core one call of fn ran, from the launches ``counter`` (a
+    wrapper's ``launches_rounds``) gained."""
+    rounds = counter.launches_rounds
+    fn()
+    return "value rounds" if counter.launches_rounds > rounds else "tiled"
+
+
 def phase_ablation(x: torch.Tensor, k: int) -> dict:
     """Phases A-D on x [B, N, 3] and their attribution, in ms a batch."""
     b, n, _ = x.shape
@@ -115,16 +135,20 @@ def phase_ablation(x: torch.Tensor, k: int) -> dict:
         "C_plus_threshold": lambda: knn_phase(x, k, thresh=True),
         "D_full_shipped": lambda: knn_adjacency(x, k, torch.bfloat16),
     }
-    rounds = knn_adjacency_cuda.launches_rounds
+    if x.device.type == "cuda":
+        cores = {name: _core(fn, knn_adjacency_cuda if name[0] == "D" else knn_phase_cuda)
+                 for name, fn in phases.items()}
+        k5 = {cores[p] for p in ("A_slab_1round", "B_slab_krounds", "C_plus_threshold")}
+        k5_core = k5.pop() if len(k5) == 1 else f"A {cores['A_slab_1round']}, B-C " \
+            f"{cores['B_slab_krounds']}"
+        phase_cores = {"A-C (K5)": k5_core, "D (K1)": cores["D_full_shipped"]}
+    else:
+        phase_cores = {"A-C (K5)": "plain", "D (K1)": "plain"}
     ms = {name: time_ms(fn, reps) for name, fn in phases.items()}
-    on_card = x.device.type == "cuda"
-    d_core = ("plain" if not on_card else
-              "value rounds" if knn_adjacency_cuda.launches_rounds > rounds else "tiled")
     return {
         "batch": b, "n": n, "k": k, "reps": reps,
         "phase_ms_per_batch": ms,
-        "phase_cores": {"A-C (K5)": "value rounds" if on_card else "plain",
-                        "D (K1)": d_core},
+        "phase_cores": phase_cores,
         "attribution_ms": {
             "slab_plus_fixed": ms["A_slab_1round"],
             "value_rounds": ms["B_slab_krounds"] - ms["A_slab_1round"],

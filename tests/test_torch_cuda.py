@@ -6,7 +6,8 @@ JAX, so it runs where JAX is not installed:
   python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: ids, distances, indicators, bit planes and K5's values exactly
-equal; the proxy within 1 bf16 ulp (an fp32 sum in another order), or 1e-6
+equal (K5's and K6's also at every forced threads-a-row S of the tiled
+core); the proxy within 1 bf16 ulp (an fp32 sum in another order), or 1e-6
 relative in fp32 (K6's too). K4 sums the set rows of F in fp32 where its
 twin runs cuBLAS, so the two differ by fp32 rounding of the sum, at most about 1e-6 of the mean of
 |F| over the row's set bits: bf16 results within 1 bf16 ulp plus that, fp32
@@ -288,55 +289,113 @@ def test_routes_match_dense(cuda, route, dtype, tol):
     assert float((d_other - d_dense).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("b,n,grid", [
-    (2, 4096, 8),  # a dyadic grid: distances exact, ties in every row
-    (2, 1001, None),  # odd N
-    (1, 20000, None),  # xyz read from global memory
-])
-@pytest.mark.parametrize("rounds,thresh", [(1, False), (1, True), (20, False), (20, True)])
-def test_k5_matches_plain(cuda, b, n, grid, rounds, thresh):
-    x = _cloud(n + rounds, b, n, cuda, grid)
-    before = knn_phases.knn_phase_cuda.launches
-    got = knn_phases.knn_phase(x, rounds, thresh)
-    assert knn_phases.knn_phase_cuda.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (b, n)
-    assert torch.equal(got, knn_phases.knn_phase_plain(x, rounds, thresh))
+def _phase_cloud(case, dev):
+    """K5's inputs: {-1, 0, 1} coordinates have about 10 distinct distances a
+    row (+inf at 20 rounds); a dyadic grid ties in every row and across
+    tiles."""
+    b, n, grid = {"n1024": (2, 1024, None), "n1025": (2, 1025, None),
+                  "n4097": (1, 4097, None), "dyadic": (2, 4096, 8), "few": (1, 1000, 1),
+                  "same": (1, 3000, "same"), "xsorted": (2, 4096, "xsorted"),
+                  "b2_n32768": (2, 32768, None), "b32": (32, 4096, None)}[case]
+    return _cloud(n + b, b, n, dev, grid)
+
+
+@pytest.mark.parametrize("case", ["n1024", "n1025", "n4097", "dyadic", "few", "same",
+                                  "xsorted", "b2_n32768", "b32"])
+def test_k5_matches_plain(cuda, case):
+    """Exactly the plain version's values, through the wrapper and on the
+    tiled core at every forced S; rounds 1-32 on the tiled core (24 and 32
+    fill each list size), 33 on the value rounds, as the counter shows."""
+    x = _phase_cloud(case, cuda)
+    b, n, _ = x.shape
+    for rounds in (1, 20, 24, 25, 32, 33):
+        for thresh in (False, True):
+            want = knn_phases.knn_phase_plain(x, rounds, thresh)
+            before = knn_phases.knn_phase_cuda.launches, knn_phases.knn_phase_cuda.launches_rounds
+            got = knn_phases.knn_phase(x, rounds, thresh)
+            assert knn_phases.knn_phase_cuda.launches == before[0] + 1
+            assert knn_phases.knn_phase_cuda.launches_rounds == before[1] + (
+                rounds > TILED_MAX_K)
+            assert got.dtype == torch.float32 and got.shape == (b, n)
+            assert torch.equal(got, want), (rounds, thresh)
+            for split in (1, 2, 4, 8) if rounds <= TILED_MAX_K else ():
+                got_s, ran_rounds = knn_phases._launch_phase(x, rounds, thresh, split)
+                assert not ran_rounds
+                assert torch.equal(got_s, want), (rounds, thresh, split)
+    if case == "few":
+        assert bool(torch.isinf(knn_phases.knn_phase(x, 20)).all())
 
 
 def test_k5_more_rounds_than_values(cuda):
     x = _cloud(1, 2, 33, cuda)
-    for rounds in (33, 34, 1000):  # 33 points: at most 33 distinct values a row
+    for rounds in (32, 33, 34, 1000):  # 33 points: at most 33 distinct values a row
         got = knn_phases.knn_phase_cuda(x, rounds, thresh=True)
         assert torch.equal(got, knn_phases.knn_phase_plain(x, rounds, thresh=True))
-        assert rounds == 33 or bool(torch.isinf(got).all())
+        assert rounds <= 33 or bool(torch.isinf(got).all())
+    with pytest.raises(RuntimeError, match="knn_phase_launch"):
+        knn_phases._launch_phase(x, 33, True, 2)  # the value rounds take no S
 
 
-@pytest.mark.parametrize("b,n,k,grid", [
-    (2, 4096, 20, 8),  # ties
-    (2, 1001, 20, None),  # odd N
-    (1, 33, 33, None),  # k = N
-    (1, 20000, 20, None),  # xyz read from global memory
-])
-def test_k6_matches_plain_and_k1(cuda, b, n, k, grid):
+_K6_CLOUDS = [
+    (2, 1001, None),  # N % 4 != 0: every tile's bulk copy has a head and a tail
+    (2, 1025, None),  # one point past a tile
+    (2, 4097, None),
+    (2, 4096, 8),  # ties
+    (1, 3000, "same"),  # identical points
+    (2, 4096, "xsorted"),  # scan order
+    (1, 20000, None),  # k = 33: the warp pairs with xyz read from global memory
+    (1, 32768, None),  # past the warp pairs' N limit, so k <= 32 only
+]
+
+
+@pytest.mark.parametrize("b,n,grid,k", [
+    (b, n, grid, k) for b, n, grid in _K6_CLOUDS for k in (20, 32, 33)
+    if k <= TILED_MAX_K or n <= 27700])
+def test_k6_matches_plain_and_k1(cuda, b, n, grid, k):
+    """The indicator equal to the plain version's and K1's, the proxy within
+    1e-6 relative; k <= 32 on the tiled pipeline, also at every forced S
+    (bit-equal to the wrapper's), k = 33 on the warp pairs."""
     x = _cloud(n + 5 * k, b, n, cuda, grid)
-    before = knn_phases.knn_adjacency_pipelined_cuda.launches
+    before = (knn_phases.knn_adjacency_pipelined_cuda.launches,
+              knn_phases.knn_adjacency_pipelined_cuda.launches_rounds)
     adj, proxy = knn_phases.knn_adjacency_pipelined(x, k)
-    assert knn_phases.knn_adjacency_pipelined_cuda.launches == before + 1
+    assert knn_phases.knn_adjacency_pipelined_cuda.launches == before[0] + 1
+    assert knn_phases.knn_adjacency_pipelined_cuda.launches_rounds == before[1] + (
+        k > TILED_MAX_K)
     adj_p, proxy_p = knn_phases.knn_adjacency_pipelined_plain(x, k)
     assert adj.dtype == torch.int8 and proxy.dtype == torch.float32
     assert torch.equal(adj, adj_p)
+    del adj_p
     assert torch.equal(adj, knn.knn_adjacency_cuda(x, k, with_proxy=False)[0])
+    _assert_proxy_close(proxy, proxy_p, torch.float32)
+    for split in (1, 2, 4, 8) if k <= TILED_MAX_K else ():
+        adj_s, proxy_s, pairs = knn_phases._launch_pipelined(x, k, split)
+        assert not pairs
+        assert torch.equal(adj_s, adj) and torch.equal(proxy_s, proxy), split
+
+
+def test_k6_misaligned_cloud(cuda):
+    """A cloud 4 bytes past a 16-byte boundary: each tile's head and tail
+    go through the producer's plain loads."""
+    x = _cloud(3, 2, 1001, cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 4
+    adj, proxy = knn_phases.knn_adjacency_pipelined(xm, 20)
+    adj_p, proxy_p = knn_phases.knn_adjacency_pipelined_plain(x, 20)
+    assert torch.equal(adj, adj_p)
     _assert_proxy_close(proxy, proxy_p, torch.float32)
 
 
 def test_k6_rejects_n_past_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
-        knn_phases.knn_adjacency_pipelined_cuda(_cloud(0, 1, 28672, cuda), 20)
+        knn_phases.knn_adjacency_pipelined_cuda(_cloud(0, 1, 28672, cuda), 33)
 
 
 def test_shared_memory_plans(cuda):
-    """Where K5 keeps xyz and how far K6's warp pair fits in a block's
-    227 KB, as the kernels' own launch plans give them."""
+    """Where K5's value rounds keep xyz and how far K6's warp pair fits in a
+    block's 227 KB (k > 32), as the kernels' own launch plans give them."""
     assert knn_phases.xyz_in_shared_memory(16384)
     assert knn_phases.xyz_in_shared_memory(18700)
     assert not knn_phases.xyz_in_shared_memory(18800)
@@ -344,8 +403,8 @@ def test_shared_memory_plans(cuda):
     with pytest.raises(ValueError, match="N=0"):
         knn_phases.xyz_in_shared_memory(0)
     x = _cloud(1, 1, 27700, cuda)
-    adj, _ = knn_phases.knn_adjacency_pipelined_cuda(x, 20)  # the largest N that fits
-    assert bool((adj.sum(-1, dtype=torch.int32) == 20).all())
+    adj, _ = knn_phases.knn_adjacency_pipelined_cuda(x, 33)  # the largest N that fits
+    assert bool((adj.sum(-1, dtype=torch.int32) == 33).all())
 
 
 def test_bf16_fullwidth_matches_jax(cuda):
