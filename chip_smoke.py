@@ -46,6 +46,26 @@ B=2, N=32768 (the packed route's), and at k=33, where K5's value rounds
 still run, at B=2 either side of their shared-memory cutoff (N=16384 and
 N=20480).
 
+Then training, counts zeroed before each phase: "train check" takes one
+step of the full-width model (Adam) on the default tuple batch, 44 blob
+submaps at N=4096 (K1 launched once), and the same step from the same
+weights on the plain twins' graph: the indicators equal, the loss, every
+gradient and the BN statistics within ``TRAIN_TOL``, and
+``matmul_f32acc``'s backward within 1 bf16 ulp of fp32 ``torch.matmul``
+at the A @ F shape; "train parity" holds the card's fp32 step at a small
+width (N=128, k=8) to JAX's in ``tests/torch_train_step.npz`` within
+``PARITY_TOL``; "train gather" takes one step at N=32768 (5 clouds: the
+batch cut, not the width) on the gather route through K2 against its
+plain twin (ids equal, loss within ``TRAIN_TOL``); "train loop" runs
+``cli/train.py`` on 2 runs x 20 synthetic submaps for 2 epochs (a mining
+refresh in the second), restores to a third (the log shows the restored
+step and only epoch 2), exports and evaluates, and reports the loss by
+epoch and K1's launches by steps, mining and evaluation; "pointnetvlad
+train" (3 steps at lr 5e-5) and "distill" (10 steps, EPC-Net teacher,
+EPC-Net-L student; the mimic loss must fall). "train timings" runs
+``scripts/train_bench.run``: ms a step, peak memory and the step's spans
+for the dense step, with remat, with accumulation over 2, and at N=32768.
+
 Output: progress lines with each phase's seconds, then a ``{"kernels":
 [...]}`` line, timing lines, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -54,6 +74,9 @@ non-zero; without a card it exits 2 and prints no result. Needs no network.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import re
@@ -65,18 +88,35 @@ import time
 import numpy as np
 import torch
 
-from epcnet_torch.cli import evaluate, generate_tuples
-from epcnet_torch.configs import DataConfig, ExperimentConfig, ModelConfig, pointnetvlad_config
+from epcnet_torch.cli import evaluate, export, generate_tuples, train
+from epcnet_torch.configs import (
+    DataConfig,
+    ExperimentConfig,
+    ModelConfig,
+    TrainConfig,
+    epcnet_l_config,
+    pointnetvlad_config,
+)
 from epcnet_torch.data import load_pc_files_native, load_pickle, native_available
 from epcnet_torch.evals import embed_entries, evaluate_dataset, get_recall
-from epcnet_torch.models import param_count
+from epcnet_torch.models import get_model, param_count
 from epcnet_torch.models.epcnet import adjacency_route
+from epcnet_torch.models.vlad_head import compute_dtype
 from epcnet_torch.ops import _build, adjacency, knn, knn_phases
-from epcnet_torch.scripts import knn_trace
+from epcnet_torch.ops.matmul import matmul_f32acc
+from epcnet_torch.scripts import knn_trace, train_bench
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
-from epcnet_torch.train.step import build_embed_fn
+from epcnet_torch.train.mining import MiningCache
+from epcnet_torch.train.state import create_train_state
+from epcnet_torch.train.step import build_distill_step, build_embed_fn, build_train_step, to_device
 from epcnet_torch.utils.timing import cuda_ms
-from epcnet_torch.weights import init_flat_variables, save_export
+from epcnet_torch.weights import (
+    flat_grads,
+    flat_variables,
+    init_flat_variables,
+    load_flat_variables,
+    save_export,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # fp32 instructions a second outside the tensor cores: 132 SMs x 128 lanes x
@@ -493,6 +533,301 @@ def bf16_gaps(embed) -> dict:
     return gaps
 
 
+# -- training on the card -----------------------------------------------------
+# the golden small EPC-Net of the CPU tests (tests/test_torch_models.py
+# GOLDEN_KW), in fp32, the width of tests/torch_train_step.npz
+GOLDEN_FP32 = dict(num_points=128, knn_k=8, proxyconv_channels=(16, 16), lift_channels=(32, 64),
+                   feature_dim=64, vlad_clusters=8, vlad_groups=4, vlad_group_dim=16,
+                   compute_dtype="float32")
+TRAIN_STEP_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                               "torch_train_step.npz")
+# the card's fp32 step against JAX's (tests/test_torch_train_step.py TOL["fp32"],
+# set from 8 seeds on the CPU): loss, gradient (of max(the tensor's largest,
+# a tenth of the model's largest)), BN statistics
+PARITY_TOL = dict(loss=5e-6, grad=2e-4, stats=5e-6)
+# the kernel path against the plain-twin path, both bf16 on the card: a 1-ulp
+# bf16 difference in K1's proxy moves a descriptor by ~1e-4 (ROUTE_TOL's
+# note), so the loss is held to ROUTE_TOL relative; gradients (same scale
+# as PARITY_TOL's) and BN statistics (O(1) values, a bf16 ulp is 4e-3) to
+# 5e-2 and 1e-2
+TRAIN_TOL = dict(loss=ROUTE_TOL, grad=5e-2, stats=1e-2)
+# the gather phase's points: the first N where training takes the gather route
+TRAIN_GATHER_N = 32768
+
+
+def grad_gap(got: dict, want: dict) -> float:
+    """The worst gradient gap, each tensor's over max(its largest entry, a
+    tenth of the largest of all): the CPU tests' measure."""
+    gmax = max(float(np.abs(v).max()) for v in want.values())
+    return max(float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()), 0.1 * gmax)
+               for k, w in want.items())
+
+
+def stats_gap(got: dict, want: dict) -> float:
+    return max(float(np.abs(got[k] - w).max()) for k, w in want.items()
+               if k.startswith("batch_stats/"))
+
+
+def plain_graph(model, k):
+    """Make ``model`` (an EPCNet) build its kNN graph with the plain twins
+    (K1's and K2's plain versions on the card), so that the same step can be
+    held against the kernel path."""
+    def build_graph(x, route):
+        if route == "gather":
+            return knn.knn_plain(x, k), None
+        return knn.knn_adjacency_plain(x, k, compute_dtype(model.cfg), with_proxy=True, fmt=route)
+    model.build_graph = build_graph
+
+
+def flat_clouds(batch: dict) -> torch.Tensor:
+    parts = [batch["query"][:, None], batch["positives"], batch["negatives"],
+             batch["other_neg"][:, None]]
+    clouds = torch.cat(parts, dim=1)
+    return clouds.reshape(-1, *clouds.shape[2:])
+
+
+def check_matmul_backward(adj: torch.Tensor, dev) -> dict:
+    """``matmul_f32acc``'s backward on the card against fp32 ``torch.matmul``
+    gradients rounded once to the operand's dtype: the dense route's A @ F
+    at the training shape (the indicator takes no gradient), and a product
+    whose both operands take one. Within 1 bf16 ulp of the reference."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = adj.to(torch.bfloat16)
+    out = {}
+    cases = {"a_at_f": (a, torch.randn(a.shape[0], a.shape[-1], 64, device=dev, generator=g)),
+             "both": (torch.randn(8, 64, 4096, device=dev, generator=g),
+                      torch.randn(8, 4096, 1024, device=dev, generator=g))}
+    for name, (x, y) in cases.items():
+        need_x = name == "both"
+        xb = x.to(torch.bfloat16).requires_grad_(need_x)
+        yb = y.to(torch.bfloat16).requires_grad_(True)
+        prod = matmul_f32acc(xb, yb)
+        assert prod.dtype == torch.float32
+        cot = torch.randn(prod.shape, device=dev, generator=g)
+        prod.backward(cot)
+        xf = xb.detach().float().requires_grad_(need_x)
+        yf = yb.detach().float().requires_grad_(True)
+        torch.matmul(xf, yf).backward(cot)
+        pairs = [(yb.grad, yf.grad)] + ([(xb.grad, xf.grad)] if need_x else [])
+        err = 0.0
+        for got, want in pairs:
+            assert got.dtype == torch.bfloat16
+            want_b = want.to(torch.bfloat16).float()
+            e = (got.float() - want_b).abs()
+            assert bool((e <= bf16_spacing(want_b)).all()), (name, float(e.max()))
+            err = max(err, float(e.max()))
+        out[name] = err
+        del xb, yb, xf, yf, prod, cot
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
+    """The training phases (see the module docstring) at ``cfg``'s width;
+    returns what the timing lines print, with each phase's launch counts
+    under ``"counts"``."""
+    ncap = TRAIN_GATHER_N
+    n, k, bf16 = cfg.num_points, cfg.knn_k, torch.bfloat16
+    res, counts = {}, {}
+    tc = TrainConfig()
+
+    # -- the full-width dense step through K1, against the plain-twin step --
+    with Phase("train check"):
+        batch = to_device(train_bench.tuple_batch(3, 2, 2, 18, n), dev)
+        kst = create_train_state(cfg, tc, dev, variables=flat)
+        pst = create_train_state(cfg, tc, dev, variables=flat)
+        plain_graph(pst.model, k)
+        step = build_train_step(cfg, tc)
+        zero_counts()
+        kst, km = step(kst, batch)
+        torch.cuda.synchronize()
+        counts["train check"] = read_counts()
+        assert counts["train check"]["K1"] == 1, counts["train check"]
+        assert sum(counts["train check"].values()) == 1, counts["train check"]
+        pst, pm = step(pst, batch)
+        assert read_counts()["K1"] == 1, "the plain-twin step launched K1"
+        clouds = flat_clouds(batch)
+        adj_k = knn.knn_adjacency_cuda(clouds, k, bf16)[0]
+        adj_p = knn.knn_adjacency_plain(clouds, k, bf16)[0]
+        assert torch.equal(adj_k, adj_p), "K1's training indicator differs from the plain one"
+        del adj_p
+        loss_k, loss_p = float(km["loss"]), float(pm["loss"])
+        assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= TRAIN_TOL["loss"] * abs(loss_p), \
+            (loss_k, loss_p)
+        g_gap = grad_gap(flat_grads(kst.model), flat_grads(pst.model))
+        s_gap = stats_gap(flat_variables(kst.model), flat_variables(pst.model))
+        assert g_gap <= TRAIN_TOL["grad"] and s_gap <= TRAIN_TOL["stats"], (g_gap, s_gap)
+        mm = check_matmul_backward(adj_k, dev)
+        del adj_k, kst, pst, batch
+        torch.cuda.empty_cache()
+    res["train_check"] = {"clouds": int(clouds.shape[0]), "n": n, "loss": loss_k,
+                          "loss_plain": loss_p, "grad_gap": g_gap, "stats_gap": s_gap,
+                          "matmul_backward_max_abs": mm, "tolerance": TRAIN_TOL}
+    log(f"phase train check: 44 clouds at N={n}, K1 launched once, indicator equal to the "
+        f"plain one; loss {loss_k} (plain {loss_p}), gradient gap {g_gap}, BN gap {s_gap}; "
+        f"matmul_f32acc backward within 1 bf16 ulp of fp32 ({mm})")
+
+    # -- the fp32 step at the golden width against JAX's (the committed file) --
+    with Phase("train parity"):
+        data = dict(np.load(TRAIN_STEP_FILE))
+        gcfg = ModelConfig(**GOLDEN_FP32)
+        gtc = TrainConfig(learning_rate=1e-3, optimizer="momentum")
+        st = create_train_state(gcfg, gtc, dev,
+                                variables=init_flat_variables(gcfg, int(data["seed"])))
+        gbatch = {key[6:]: v for key, v in data.items() if key.startswith("batch/")}
+        zero_counts()
+        st, m = build_train_step(gcfg, gtc)(st, gbatch)
+        torch.cuda.synchronize()
+        counts["train parity"] = read_counts()
+        assert counts["train parity"]["K1"] == 1, counts["train parity"]
+        want_g = {key[5:]: v for key, v in data.items() if key.startswith("grad/")}
+        want_s = {key[6:]: v for key, v in data.items() if key.startswith("stats/")}
+        p_loss = abs(float(m["loss"]) - float(data["loss"]))
+        p_grad = grad_gap(flat_grads(st.model), want_g)
+        p_stats = stats_gap(flat_variables(st.model), want_s)
+        assert p_loss <= PARITY_TOL["loss"], p_loss
+        assert p_grad <= PARITY_TOL["grad"] and p_stats <= PARITY_TOL["stats"], (p_grad, p_stats)
+    res["train_parity"] = {"loss_gap": p_loss, "grad_gap": p_grad, "stats_gap": p_stats,
+                           "tolerance": PARITY_TOL}
+    log(f"phase train parity: the card's fp32 step against JAX's: loss {p_loss}, gradient "
+        f"{p_grad}, BN {p_stats} (tolerances {PARITY_TOL})")
+
+    # -- the gather route: N=32768 in training, through K2 ---------------------
+    with Phase("train gather"):
+        capcfg = cfg.variant(num_points=ncap)
+        assert adjacency_route(capcfg, ncap, train=True) == "gather"
+        gtc1 = dataclasses.replace(tc, batch_num_queries=1)
+        batch = to_device(train_bench.tuple_batch(4, 1, 1, 2, ncap), dev)
+        kst = create_train_state(capcfg, gtc1, dev, variables=flat)
+        pst = create_train_state(capcfg, gtc1, dev, variables=flat)
+        plain_graph(pst.model, k)
+        step = build_train_step(capcfg, gtc1)
+        zero_counts()
+        kst, km = step(kst, batch)
+        torch.cuda.synchronize()
+        counts["train gather"] = read_counts()
+        assert counts["train gather"]["K2"] == 1, counts["train gather"]
+        assert sum(counts["train gather"].values()) == 1, counts["train gather"]
+        pst, pm = step(pst, batch)
+        assert read_counts()["K2"] == 1, "the plain-twin step launched K2"
+        clouds = flat_clouds(batch)
+        assert torch.equal(knn.knn_cuda(clouds, k), knn.knn_plain(clouds, k)), \
+            "K2's training ids differ from the plain ones"
+        lg_k, lg_p = float(km["loss"]), float(pm["loss"])
+        assert np.isfinite(lg_k) and abs(lg_k - lg_p) <= TRAIN_TOL["loss"] * abs(lg_p), (lg_k, lg_p)
+        del kst, pst, batch, clouds
+        torch.cuda.empty_cache()
+    res["train_gather"] = {"clouds": 5, "n": ncap, "loss": lg_k, "loss_plain": lg_p}
+    log(f"phase train gather: 5 clouds at N={ncap} on the gather route, K2 launched once, ids "
+        f"equal to the plain ones; loss {lg_k} (plain {lg_p})")
+
+    # -- the training loop through the CLIs --------------------------------
+    root, log_dir = os.path.join(tmp, "train_data"), os.path.join(tmp, "train_log")
+    with Phase("train loop"):
+        generate_tuples.main(["--dataset_root", root, "--synthetic", "--synthetic_runs", "2",
+                              "--synthetic_submaps", "20", "--num_points", str(n)])
+        cfg_path = os.path.join(tmp, "train_config.json")
+        with open(cfg_path, "w") as f:  # the model of the other phases
+            f.write(ExperimentConfig(model=cfg, data=DataConfig(num_points=n)).to_json())
+        sets = ["data.num_positives=1", "train.max_epoch=2", "train.mining_start_epoch=1",
+                "train.log_every_steps=1", "train.checkpoint_every_steps=1000000"]
+        args = ["--config", cfg_path, "--dataset_root", root, "--log_dir", log_dir,
+                "--tuples_pickle", os.path.join(root, "training_queries_baseline.pickle"),
+                "--device", dev.type]
+        args += [a for kv in sets for a in ("--set", kv)]
+        mining_k1 = [0]
+        real_refresh = MiningCache.refresh
+
+        def counted_refresh(self, model):
+            before = read_counts()["K1"]
+            real_refresh(self, model)
+            mining_k1[0] += read_counts()["K1"] - before
+
+        MiningCache.refresh = counted_refresh
+        try:
+            zero_counts()
+            tr = train.main(args)
+            first = read_counts()
+            steps = tr.state.step
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                tr2 = train.main(args + ["--restore", "--set", "train.max_epoch=3"])
+            resumed = read_counts()
+        finally:
+            MiningCache.refresh = real_refresh
+        text = buf.getvalue()
+        print(text, end="")
+        assert f"restored at step {steps}" in text, text
+        assert "epoch 2:" in text and "epoch 0:" not in text and "epoch 1:" not in text, text
+        assert tr2.state.step == steps * 3 // 2, (steps, tr2.state.step)
+        recs = [json.loads(line) for line in open(os.path.join(log_dir, "train.jsonl"))]
+        loss_by_epoch = {e: float(np.mean([r["loss"] for r in recs if r["epoch"] == e]))
+                         for e in sorted({r["epoch"] for r in recs})}
+        assert all(np.isfinite(v) for v in loss_by_epoch.values()), loss_by_epoch
+        assert sorted(loss_by_epoch) == [0, 1, 2], loss_by_epoch
+        export.main(["--log_dir", log_dir])
+        zero_counts()
+        ev = evaluate.main(["--dataset_root", root, "--log_dir", log_dir, "--device", dev.type])
+        eval_counts = read_counts()
+        r1 = float(ev["results"]["average"]["recall_at"][0])
+        assert np.isfinite(r1) and eval_counts["K1"] >= 1, (r1, eval_counts)
+        train_k1 = resumed["K1"] - mining_k1[0]
+        assert train_k1 == tr2.state.step, (train_k1, tr2.state.step, mining_k1)
+        mining = train_bench.bench_mining(cfg, root, tr.tuples.queries, dev)
+    counts["train loop"] = resumed
+    res["train_loop"] = {"submaps": len(tr.tuples.queries), "steps": tr2.state.step,
+                         "loss_by_epoch": loss_by_epoch, "recall_at_1": r1,
+                         "k1_launches": {"train_steps": train_k1, "mining": mining_k1[0],
+                                         "eval": eval_counts["K1"]},
+                         "mining": mining}
+    log(f"phase train loop: {steps} steps in 2 epochs, restored at step {steps}, epoch 2 only "
+        f"({tr2.state.step} steps in all), export + evaluate recall@1 {r1}; loss by epoch "
+        f"{loss_by_epoch}; K1 launches {res['train_loop']['k1_launches']}")
+
+    # -- PointNetVLAD and distillation steps ---------------------------------
+    with Phase("pointnetvlad train"):
+        pcfg = pointnetvlad_config()
+        ptc = TrainConfig(learning_rate=5e-5)
+        st = create_train_state(pcfg, ptc, dev, variables=init_flat_variables(pcfg, 0))
+        batch = to_device(train_bench.tuple_batch(5, 2, 2, 18, n), dev)
+        step = build_train_step(pcfg, ptc)
+        zero_counts()
+        pnv_loss = []
+        for _ in range(3):
+            st, m = step(st, batch)
+            pnv_loss.append(float(m["loss"]))
+        assert all(np.isfinite(pnv_loss)) and sum(read_counts().values()) == 0, pnv_loss
+        del st
+        torch.cuda.empty_cache()
+    res["pointnetvlad_train"] = {"loss": pnv_loss}
+    log(f"phase pointnetvlad train: 3 steps at lr 5e-5, 44 clouds, losses {pnv_loss} "
+        "(library ops only)")
+    with Phase("distill"):
+        scfg = epcnet_l_config()
+        teacher = get_model(cfg, dev)
+        load_flat_variables(teacher, flat)
+        dtc = TrainConfig(learning_rate=1e-3)
+        st = create_train_state(scfg, dtc, dev, variables=init_flat_variables(scfg, 1))
+        batch = to_device(train_bench.tuple_batch(3, 2, 2, 18, n), dev)
+        step = build_distill_step(scfg, cfg, dtc, alpha=5.0)
+        zero_counts()
+        mimic, dloss = [], []
+        for _ in range(10):
+            st, m = step(st, teacher, batch)
+            mimic.append(float(m["mimic_loss"]))
+            dloss.append(float(m["loss"]))
+        counts["distill"] = read_counts()
+        assert all(np.isfinite(dloss)) and mimic[-1] < mimic[0], (dloss, mimic)
+        assert counts["distill"]["K1"] == 20, counts["distill"]  # student + teacher a step
+        del st, teacher
+        torch.cuda.empty_cache()
+    res["distill"] = {"mimic_loss": mimic, "loss": dloss}
+    log(f"phase distill: 10 steps, EPC-Net teacher, EPC-Net-L student; mimic loss "
+        f"{mimic[0]} -> {mimic[-1]}")
+    res["counts"] = counts
+    return res
+
+
 def spill_bytes(report: str) -> dict:
     """{kernel: spill store + load bytes} from a ptxas -v report."""
     out, name = {}, None
@@ -873,12 +1208,21 @@ def main() -> int:
     log(f"phase knn trace: K6 verdict {trace['pipelined']['verdict']}; kNN span "
         f"{span_ms} ms a forward against phase D {d_ms} ms; launches {trace_counts}")
 
+    # -- 10c. training, launch counts zeroed before each phase --------------
+    with tempfile.TemporaryDirectory(prefix="epcnet_train_") as tmp:
+        trained = train_phases(dev, cfg, flat, tmp)
+    train_counts = trained.pop("counts")
+    with Phase("train timings"):
+        bench = train_bench.run(dev, 10)
+    log(f"phase train timings: dense {bench['dense']['ms_per_step']:.2f} ms a step, gather "
+        f"{bench['gather']['ms_per_step']:.2f} ms")
+
     # -- 11. timings, at the shapes the serving paths give each kernel -----
     with Phase("timings"):
         kernels = []
 
         path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
-                       "evaluate": eval_counts, "knn trace": trace_counts}
+                       "evaluate": eval_counts, "knn trace": trace_counts, **train_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
                   shape, counter, **extra):
@@ -1063,6 +1407,8 @@ def main() -> int:
                               "db_rows": len(ix)}}))
     log(json.dumps({"evaluate": ev}))
     log(json.dumps({"bf16_gemm_check": {**gaps, "tolerance": BF16_TOL}}))
+    log(json.dumps({"train": trained}))
+    log(json.dumps({"train_bench": bench}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -1,8 +1,9 @@
 """The data plane of the port (twin of ``epcnet_tpu/data``): ``.bin``
 submap IO and augmentation, the native batch loader, training-tuple and
-test-set generation, and the synthetic dataset. The training loader
-(``TupleLoader``, ``get_query_tuple``) is training, ROADMAP item 4."""
+test-set generation, the synthetic dataset, and the training tuple loader
+(``TupleLoader``, ``get_query_tuple``)."""
 
+from epcnet_torch.data.loader import TupleLoader, get_query_tuple
 from epcnet_torch.data.native_loader import load_pc_files_native, native_available
 from epcnet_torch.data.pointclouds import (
     jitter_point_cloud,
@@ -40,4 +41,6 @@ __all__ = [
     "save_pickle",
     "load_pickle",
     "generate_synthetic_dataset",
+    "TupleLoader",
+    "get_query_tuple",
 ]

@@ -1,5 +1,7 @@
-"""Model zoo of the port: EPC-Net, EPC-Net-L and PointNetVLAD, in eval
-mode (training is ROADMAP item 4)."""
+"""Model zoo of the port: EPC-Net, EPC-Net-L and PointNetVLAD. Each model's
+``forward(points, train=False, momentum=0.9)`` takes the JAX call's
+arguments; ``layers.commit_batch_stats`` applies a train forward's BN
+statistics."""
 
 from __future__ import annotations
 
@@ -9,7 +11,14 @@ from torch import nn
 from epcnet_torch.configs import ModelConfig, epcnet_l_config, pointnetvlad_config
 from epcnet_torch.device import resolve_device
 from epcnet_torch.models.epcnet import EPCNet, param_count
-from epcnet_torch.models.layers import Dense, DynamicBatchNorm, ProxyConv, SharedMLP, TNet
+from epcnet_torch.models.layers import (
+    Dense,
+    DynamicBatchNorm,
+    ProxyConv,
+    SharedMLP,
+    TNet,
+    commit_batch_stats,
+)
 from epcnet_torch.models.pointnetvlad import PointNetVLAD
 from epcnet_torch.models.vlad_head import GVLADHead
 
@@ -42,6 +51,7 @@ __all__ = [
     "ProxyConv",
     "SharedMLP",
     "DynamicBatchNorm",
+    "commit_batch_stats",
     "TNet",
     "Dense",
     "param_count",

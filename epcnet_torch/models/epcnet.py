@@ -1,4 +1,4 @@
-"""EPC-Net and EPC-Net-L in eval mode (twin of ``epcnet_tpu/models/epcnet.py``).
+"""EPC-Net and EPC-Net-L (twin of ``epcnet_tpu/models/epcnet.py``).
 
 [B, N, 3] submap -> kNN graph (computed ONCE on xyz) -> ProxyConv stack ->
 multi-scale concat -> per-point lift -> G-VLAD -> [B, output_dim]
@@ -14,6 +14,12 @@ The kNN graph takes one of three routes, chosen as the JAX model chooses
   K4 (``packed_neighbor_mean``);
 - gather (``auto`` past N=32768): K2 gives the id lists; every layer,
   layer 0 included, takes ``gather_neighbor_mean``.
+
+Training (``train=True``) never takes the packed route (K4 has no
+backward) and takes gather from N=32768 on, as the JAX model does; the
+graph is structure, built with no gradient, and every product of the
+backward pass is a library one (``ops/matmul.py``; the gather's backward
+is a scatter-add, whose fp32 sums the card adds in no fixed order).
 
 ``use_pallas`` has no effect here: a CPU tensor takes the plain twins, a
 CUDA tensor the kernels.
@@ -56,12 +62,17 @@ def _packed_layout_supported(n: int, proxy_dtype: str, tile_q: int = 256) -> boo
     return n % unit == 0
 
 
-def adjacency_route(cfg: ModelConfig, n: int) -> str:
-    """The eval route the JAX model takes for N points: dense, packed or
-    gather."""
+def adjacency_route(cfg: ModelConfig, n: int, train: bool = False) -> str:
+    """The route the JAX model takes for N points: dense, packed or gather.
+    In training ``auto`` takes gather AT N=32768 (the dense [32k, 32k]
+    indicator is the JAX package's measured compile failure) and nothing,
+    ``adjacency_format="packed"`` included, takes the packed route."""
     fmt = cfg.adjacency_format
-    if fmt == "gather" or (fmt == "auto" and n > _GATHER_AUTO_N):
+    if fmt == "gather" or (fmt == "auto" and (
+            n > _GATHER_AUTO_N or (train and n >= _GATHER_AUTO_N))):
         return "gather"
+    if train:
+        return "dense"
     if fmt == "packed" or (
         fmt == "auto" and n > _PACKED_AUTO_N
         and _packed_layout_supported(n, cfg.compute_dtype)
@@ -84,14 +95,13 @@ class EPCNet(nn.Module):
         self.lift = SharedMLP(sum(cfg.proxyconv_channels), cfg.lift_channels, dtype)
         self.gvlad = GVLADHead(cfg)
 
-    def forward(self, points: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError("training is not ported yet (ROADMAP item 4)")
+    def forward(self, points: torch.Tensor, train: bool = False,
+                momentum=0.9) -> torch.Tensor:
         x = points.float()
-        route = adjacency_route(self.cfg, x.shape[-2])
-        with profile_region("epcnet/knn_graph"):
+        route = adjacency_route(self.cfg, x.shape[-2], train)
+        with profile_region("epcnet/knn_graph"), torch.no_grad():
             graph, proxy0 = self.build_graph(x, route)
-        return self.forward_graph(x, graph, proxy0, route)
+        return self.forward_graph(x, graph, proxy0, route, train, momentum)
 
     def build_graph(self, x: torch.Tensor, route: str):
         """The kNN graph of ``route`` and the layer-0 proxy: (int8 indicator
@@ -104,7 +114,8 @@ class EPCNet(nn.Module):
 
     def forward_graph(self, x: torch.Tensor, graph: torch.Tensor,
                       proxy0: torch.Tensor | None = None,
-                      route: str = "dense") -> torch.Tensor:
+                      route: str = "dense", train: bool = False,
+                      momentum=0.9) -> torch.Tensor:
         """The network after the kNN graph, as ``build_graph`` gives it for
         ``route``. Split from ``forward`` so a caller can feed a graph from
         another source (the plain twins on the card, to hold the kernel path
@@ -129,12 +140,13 @@ class EPCNet(nn.Module):
                 with profile_region("epcnet/indicator_cast"):
                     a = graph.to(dtype)  # once per forward, shared by layers 1..
             with profile_region(f"epcnet/proxyconv_{i}"):
-                f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy)
+                f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy, train=train,
+                                                    momentum=momentum)
             scales.append(f)
         with profile_region("epcnet/lift"):
-            f_lift = self.lift(torch.cat(scales, dim=-1))  # [B, N, feature_dim]
+            f_lift = self.lift(torch.cat(scales, dim=-1), train, momentum)  # [B, N, feature_dim]
         with profile_region("epcnet/gvlad"):
-            return self.gvlad(f_lift)
+            return self.gvlad(f_lift, train=train, momentum=momentum)
 
 
 def param_count(model: nn.Module) -> int:

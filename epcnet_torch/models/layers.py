@@ -2,10 +2,17 @@
 
 Module and parameter names follow the flax modules one to one, so the flat
 ``params/...`` / ``batch_stats/...`` names of ``cli/export.py`` map onto
-``state_dict`` keys by swapping ``/`` for ``.`` (``weights.py``). This slice
-is eval only: every module raises on ``train=True`` (training is ROADMAP
-item 4). Parameters are created as zeros; real values come from
+``state_dict`` keys by swapping ``/`` for ``.`` (``weights.py``). Every
+module takes ``train`` and ``momentum`` as call arguments, as the flax
+modules do. Parameters are created as zeros; real values come from
 ``weights.load_flat_variables``.
+
+BN's running statistics are updated functionally, as the JAX train step
+does with ``mutable=["batch_stats"]``: in train mode ``DynamicBatchNorm``
+only records its batch (mean, var) and the momentum it was called with, and
+``commit_batch_stats`` applies the EMA once, after backward. A forward that
+``torch.utils.checkpoint`` runs a second time during backward records the
+same values again and so cannot apply the update twice.
 """
 
 from __future__ import annotations
@@ -18,8 +25,6 @@ from torch import nn
 
 from epcnet_torch.ops.adjacency import neighbor_mean
 from epcnet_torch.utils.profiling import profile_region
-
-_TRAINING = "training is not ported yet (ROADMAP item 4, Training)"
 
 
 class Dense(nn.Module):
@@ -40,9 +45,13 @@ class Dense(nn.Module):
 
 
 class DynamicBatchNorm(nn.Module):
-    """BatchNorm over all leading axes, eval mode: the running ``mean`` and
-    ``var`` buffers, eps 1e-3 (reference tf_util), computed in fp32 and cast
-    back to the input's dtype. Hand-written, not ``nn.BatchNorm1d``: the
+    """BatchNorm over all leading axes with the momentum a call argument,
+    eps 1e-3 (reference tf_util), computed in fp32 and cast back to the
+    input's dtype. Eval mode normalises with the running ``mean`` and
+    ``var`` buffers; train mode with the batch's fp32 mean and biased
+    variance (``jnp.var``: the mean of the squared deviations), through
+    which the gradient flows, and records ``(mean, var, momentum)`` for
+    ``commit_batch_stats``. Hand-written, not ``nn.BatchNorm1d``: the
     reference's running update and biased variance differ from torch's."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3):
@@ -52,12 +61,40 @@ class DynamicBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.pending = None  # (batch mean, batch var, momentum) of a train forward
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
+        xf = x.float()
         if train:
-            raise NotImplementedError(_TRAINING)
-        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            red = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=red)
+            var = ((xf - mean) ** 2).mean(dim=red)
+            self.pending = (mean.detach(), var.detach(), momentum)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(x.dtype)
+
+
+@torch.no_grad()
+def commit_batch_stats(model: nn.Module) -> int:
+    """Apply each train-mode BN's recorded batch statistics to its running
+    ones, ``ra = m·ra + (1 - m)·batch`` with the momentum it was called
+    with, in fp32, and clear the record. Returns how many BNs were updated.
+    Called once per forward-backward by the train step (once per
+    micro-batch under accumulation, so the updates chain as in JAX)."""
+    n = 0
+    for mod in model.modules():
+        if isinstance(mod, DynamicBatchNorm) and mod.pending is not None:
+            mean, var, m = mod.pending
+            # m stays a host scalar: a copy of it to the card would wait for
+            # the card (PyTorch synchronises pageable host-to-device copies)
+            m = float(m)
+            mod.mean.mul_(m).add_(mean, alpha=1.0 - m)
+            mod.var.mul_(m).add_(var, alpha=1.0 - m)
+            mod.pending = None
+            n += 1
+    return n
 
 
 class SharedMLP(nn.Module):
@@ -75,13 +112,11 @@ class SharedMLP(nn.Module):
                 self.add_module(f"bn_{i}", DynamicBatchNorm(w))
             in_features = w
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAINING)
+    def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
         for i in range(len(self.widths)):
             x = getattr(self, f"dense_{i}")(x)
             if hasattr(self, f"bn_{i}"):
-                x = F.relu(getattr(self, f"bn_{i}")(x))
+                x = F.relu(getattr(self, f"bn_{i}")(x, train, momentum))
         return x
 
 
@@ -100,15 +135,13 @@ class ProxyConv(nn.Module):
         self.bn = DynamicBatchNorm(out_channels)
 
     def forward(self, features: torch.Tensor, adjacency: torch.Tensor | None,
-                proxy: torch.Tensor | None = None, train: bool = False):
-        if train:
-            raise NotImplementedError(_TRAINING)
+                proxy: torch.Tensor | None = None, train: bool = False, momentum=0.9):
         if proxy is None:  # the dense route's A @ F, a span of its own
             with profile_region("epcnet/neighbor_mean"):
                 proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
                                       adjacency_scale=1.0 / self.knn_k)
         h = torch.cat([proxy - features, features], dim=-1)
-        return F.relu(self.bn(self.dense(h)))
+        return F.relu(self.bn(self.dense(h), train, momentum))
 
 
 class TNet(nn.Module):
@@ -127,10 +160,9 @@ class TNet(nn.Module):
         self.transform_w = nn.Parameter(torch.zeros(256, dim * dim))
         self.transform_b = nn.Parameter(torch.eye(dim).reshape(-1))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAINING)
-        h = self.mlp(x).amax(dim=-2)  # [B, 1024]
-        h = self.fc(h)
+    def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
+        # amax, as jnp.max, splits the gradient evenly among tied maxima
+        h = self.mlp(x, train, momentum).amax(dim=-2)  # [B, 1024]
+        h = self.fc(h, train, momentum)  # BN over [B, C]
         t = h.float() @ self.transform_w + self.transform_b
         return t.reshape(x.shape[0], self.dim, self.dim)

@@ -1,4 +1,4 @@
-"""PointNetVLAD in eval mode (twin of ``epcnet_tpu/models/pointnetvlad.py``;
+"""PointNetVLAD (twin of ``epcnet_tpu/models/pointnetvlad.py``;
 BASELINE config #3).
 
 PointNet backbone (input T-Net, shared MLP ``mlp1``, feature T-Net, shared
@@ -34,16 +34,15 @@ class PointNetVLAD(nn.Module):
         self.mlp2 = SharedMLP(c1, cfg.pointnet_channels[2:], dtype)
         self.netvlad = GVLADHead(cfg)
 
-    def forward(self, points: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError("training is not ported yet (ROADMAP item 4)")
+    def forward(self, points: torch.Tensor, train: bool = False,
+                momentum=0.9) -> torch.Tensor:
         dtype = compute_dtype(self.cfg)
         x = points.float()
         if self.cfg.use_tnet:  # the transforms are applied in fp32
-            t_in = self.input_tnet(x.to(dtype))
+            t_in = self.input_tnet(x.to(dtype), train, momentum)
             x = torch.einsum("bnd,bde->bne", x, t_in.float())
-        h = self.mlp1(x.to(dtype))
+        h = self.mlp1(x.to(dtype), train, momentum)
         if self.cfg.use_tnet:
-            t_feat = self.feature_tnet(h)
+            t_feat = self.feature_tnet(h, train, momentum)
             h = torch.einsum("bnd,bde->bne", h.float(), t_feat.float()).to(dtype)
-        return self.netvlad(self.mlp2(h))
+        return self.netvlad(self.mlp2(h, train, momentum), train=train, momentum=momentum)

@@ -44,10 +44,10 @@ class GVLADHead(nn.Module):
             self.gate = Dense(cfg.output_dim, cfg.output_dim, torch.float32)
 
     def forward(self, features: torch.Tensor, mask: torch.Tensor | None = None,
-                train: bool = False) -> torch.Tensor:
-        """features [B, N, D] -> L2-normalised [B, output_dim] fp32."""
-        if train:
-            raise NotImplementedError("training is not ported yet (ROADMAP item 4)")
+                train: bool = False, momentum=0.9) -> torch.Tensor:
+        """features [B, N, D] -> L2-normalised [B, output_dim] fp32. The head
+        has no BN: ``train`` and ``momentum`` are taken as the flax head
+        takes them and change nothing."""
         cfg = self.cfg
         if features.shape[-1] != cfg.feature_dim:
             raise ValueError(f"features {tuple(features.shape)} != feature_dim "

@@ -71,6 +71,33 @@ def load_flat_variables(model: nn.Module, flat: Mapping[str, np.ndarray]) -> nn.
     return model
 
 
+def flat_variables(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's parameters and BN buffers as a ``flatten_variables``
+    dict (fp32 numpy, Dense kernels back in flax's [in, out] layout): the
+    inverse of ``load_flat_variables``, in the module's registration order
+    (``params/...`` first, then ``batch_stats/...``, as the JAX export)."""
+    flat = {}
+    for key, t in model.named_parameters():
+        flat.update([_flat_entry(key, t, False)])
+    for key, t in model.named_buffers():
+        flat.update([_flat_entry(key, t, True)])
+    return flat
+
+
+def flat_grads(model: nn.Module) -> dict[str, np.ndarray]:
+    """Each parameter's ``.grad`` under its flat ``params/...`` name, in the
+    layout of the JAX gradient tree (Dense kernels [in, out]); a parameter
+    with no gradient maps to zeros, as JAX's gradient of an unused leaf."""
+    return dict(_flat_entry(key, p.grad if p.grad is not None else torch.zeros_like(p), False)
+                for key, p in model.named_parameters())
+
+
+def _flat_entry(key: str, t: torch.Tensor, is_buffer: bool) -> tuple[str, np.ndarray]:
+    name, transpose = _to_flat_name(key, is_buffer)
+    v = t.detach().float().cpu().numpy()
+    return name, np.array(v.T if transpose else v, order="C")  # a copy, never a view
+
+
 def load_export(basename: str) -> tuple[ExperimentConfig, dict[str, np.ndarray]]:
     """Read the ``<basename>.npz`` / ``<basename>.json`` pair that
     ``epcnet_tpu/cli/export.py`` writes. Returns (config from the manifest,

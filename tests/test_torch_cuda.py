@@ -449,3 +449,132 @@ def test_latency_probe_on_card(cuda):
     assert set(out) == {"p50_ms", "p99_ms", "device_ms"}
     assert all(np.isfinite(v) for v in out.values())
     assert out["p99_ms"] >= out["p50_ms"] > 0 and out["device_ms"] > 0
+
+
+# -- training on the card ------------------------------------------------------
+# the golden small EPC-Net (tests/test_torch_models.py GOLDEN_KW) in fp32, the
+# width of tests/torch_train_step.npz (JAX's step, written by
+# tests/test_torch_train_variants.py)
+GOLDEN_FP32 = dict(num_points=128, knn_k=8, proxyconv_channels=(16, 16), lift_channels=(32, 64),
+                   feature_dim=64, vlad_clusters=8, vlad_groups=4, vlad_group_dim=16,
+                   compute_dtype="float32")
+TRAIN_STEP_FILE = os.path.join(os.path.dirname(__file__), "torch_train_step.npz")
+# tests/test_torch_train_step.py TOL["fp32"] (8 seeds on the CPU)
+PARITY_TOL = dict(loss=5e-6, grad=2e-4, stats=5e-6)
+# the kernel path against the plain-twin path in bf16 (chip_smoke.py TRAIN_TOL)
+TRAIN_TOL = dict(loss=1e-3, grad=5e-2, stats=1e-2)
+
+
+def _grad_gap(got, want):
+    gmax = max(float(np.abs(v).max()) for v in want.values())
+    return max(float(np.abs(got[k] - w).max()) / max(float(np.abs(w).max()), 0.1 * gmax)
+               for k, w in want.items())
+
+
+def _stats_gap(got, want):
+    return max(float(np.abs(got[k] - w).max()) for k, w in want.items()
+               if k.startswith("batch_stats/"))
+
+
+def _blob_batch(seed, b, p, ng, n):
+    from epcnet_torch.scripts.train_bench import tuple_batch
+
+    return tuple_batch(seed, b, p, ng, n)
+
+
+def _plain_graph(model, k):
+    from epcnet_torch.models.vlad_head import compute_dtype
+
+    def build_graph(x, route):
+        if route == "gather":
+            return knn.knn_plain(x, k), None
+        return knn.knn_adjacency_plain(x, k, compute_dtype(model.cfg), True, route)
+    model.build_graph = build_graph
+
+
+@pytest.mark.parametrize("both", [False, True])
+def test_matmul_f32acc_backward_matches_fp32(cuda, both):
+    """The card's autograd.Function against fp32 torch.matmul gradients
+    rounded once to bf16: within 1 bf16 ulp."""
+    from epcnet_torch.ops.matmul import matmul_f32acc
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if both:
+        x = torch.randn(4, 64, 1000, device=cuda, generator=g)
+    else:  # an indicator, which takes no gradient
+        x = (torch.rand(11, 1000, 1000, device=cuda, generator=g) < 0.02).float()
+    y = torch.randn(x.shape[0], 1000, 48, device=cuda, generator=g)
+    xb = x.bfloat16().requires_grad_(both)
+    yb = y.bfloat16().requires_grad_(True)
+    out = matmul_f32acc(xb, yb)
+    assert out.dtype == torch.float32
+    cot = torch.randn(out.shape, device=cuda, generator=g)
+    out.backward(cot)
+    xf = xb.detach().float().requires_grad_(both)
+    yf = yb.detach().float().requires_grad_(True)
+    torch.matmul(xf, yf).backward(cot)
+    for got, want in [(yb.grad, yf.grad)] + ([(xb.grad, xf.grad)] if both else []):
+        want_b = want.bfloat16().float()
+        assert got.dtype == torch.bfloat16
+        assert bool(((got.float() - want_b).abs() <= _bf16_spacing(want_b)).all())
+    assert xb.grad is None if not both else xb.grad is not None
+
+
+def _step_pair(cfg, tc, batch, cuda):
+    from epcnet_torch.train.state import create_train_state
+    from epcnet_torch.train.step import build_train_step, to_device
+
+    flat = init_flat_variables(cfg, 0)
+    batch = to_device(batch, cuda)
+    kst = create_train_state(cfg, tc, cuda, variables=flat)
+    pst = create_train_state(cfg, tc, cuda, variables=flat)
+    _plain_graph(pst.model, cfg.knn_k)
+    step = build_train_step(cfg, tc)
+    before = knn.knn_adjacency_cuda.launches, knn.knn_cuda.launches
+    kst, km = step(kst, batch)
+    launched = (knn.knn_adjacency_cuda.launches - before[0], knn.knn_cuda.launches - before[1])
+    pst, pm = step(pst, batch)
+    return kst, km, pst, pm, launched
+
+
+@pytest.mark.parametrize("fmt", ["dense", "gather"])
+def test_train_step_kernel_path_matches_plain(cuda, fmt):
+    """A small bf16 step through K1 (dense) or K2 (gather) against the same
+    step on the plain twins' graph: one launch, the loss, every gradient and
+    the BN statistics within TRAIN_TOL."""
+    from epcnet_torch.configs import TrainConfig
+    from epcnet_torch.weights import flat_grads, flat_variables
+
+    cfg = ModelConfig(num_points=2048, knn_k=20, proxyconv_channels=(16, 16, 16, 32),
+                      lift_channels=(64, 128), feature_dim=128, vlad_clusters=16,
+                      vlad_groups=4, vlad_group_dim=16, adjacency_format=fmt)
+    kst, km, pst, pm, launched = _step_pair(cfg, TrainConfig(), _blob_batch(5, 2, 2, 4, 2048),
+                                            cuda)
+    assert launched == ((1, 0) if fmt == "dense" else (0, 1))
+    lk, lp = float(km["loss"]), float(pm["loss"])
+    assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_TOL["loss"] * abs(lp)
+    assert _grad_gap(flat_grads(kst.model), flat_grads(pst.model)) <= TRAIN_TOL["grad"]
+    assert _stats_gap(flat_variables(kst.model), flat_variables(pst.model)) <= TRAIN_TOL["stats"]
+
+
+def test_train_step_matches_jax_file(cuda):
+    """The card's fp32 step at the golden width (K1 at N=128, k=8) against
+    JAX's CPU step in tests/torch_train_step.npz."""
+    from epcnet_torch.configs import TrainConfig
+    from epcnet_torch.train.state import create_train_state
+    from epcnet_torch.train.step import build_train_step
+    from epcnet_torch.weights import flat_grads, flat_variables
+
+    data = dict(np.load(TRAIN_STEP_FILE))
+    cfg = ModelConfig(**GOLDEN_FP32)
+    tc = TrainConfig(learning_rate=1e-3, optimizer="momentum")
+    st = create_train_state(cfg, tc, cuda, variables=init_flat_variables(cfg, int(data["seed"])))
+    before = knn.knn_adjacency_cuda.launches
+    st, m = build_train_step(cfg, tc)(st, {k[6:]: v for k, v in data.items()
+                                           if k.startswith("batch/")})
+    assert knn.knn_adjacency_cuda.launches == before + 1
+    assert abs(float(m["loss"]) - float(data["loss"])) <= PARITY_TOL["loss"]
+    want_g = {k[5:]: v for k, v in data.items() if k.startswith("grad/")}
+    want_s = {k[6:]: v for k, v in data.items() if k.startswith("stats/")}
+    assert _grad_gap(flat_grads(st.model), want_g) <= PARITY_TOL["grad"]
+    assert _stats_gap(flat_variables(st.model), want_s) <= PARITY_TOL["stats"]

@@ -37,7 +37,7 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 38  # every submodule was imported
+    assert int(out.stdout.strip()) >= 51  # every submodule was imported
 
 
 def _imports(path):
@@ -61,7 +61,7 @@ def test_source_scan():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "epcnet_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 39  # chip_smoke.py and the package's 38 modules
+    assert len(files) >= 52  # chip_smoke.py and the package's 51 modules
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in FORBIDDEN + HOST_ONLY, (f, mod)
@@ -88,10 +88,11 @@ def test_configs_copy_in_step():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import numpy as np
 
-    from epcnet_torch.cli import embed, evaluate
+    from epcnet_torch.cli import distill, embed, evaluate, train
     from epcnet_torch.evals import get_recall, retrieval_latency_probe
     from epcnet_torch.models import get_model
     from epcnet_torch.serve import PlaceIndex
+    from epcnet_torch.train import Trainer, create_train_state
     from epcnet_torch.train.step import build_embed_fn
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -104,7 +105,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: get_recall(db, db, [[0]] * 4),
                  lambda: retrieval_latency_probe(db, 4),
                  lambda: evaluate.main(["--dataset_root", str(tmp_path)] + log),
-                 lambda: embed.main(log + ["cloud.bin"])):
+                 lambda: embed.main(log + ["cloud.bin"]),
+                 lambda: create_train_state(cfg, tcfg.TrainConfig()),
+                 lambda: Trainer(tcfg.ExperimentConfig(), None),
+                 lambda: train.main(["--dataset_root", str(tmp_path)] + log),
+                 lambda: distill.main(["--dataset_root", str(tmp_path),
+                                       "--teacher_log_dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert next(get_model(cfg, "cpu").parameters()).device.type == "cpu"
