@@ -22,6 +22,30 @@ just before each serving run and read just after it. At N=32768 the three
 routes also run side by side on the same clouds and weights, and their
 descriptors must agree.
 
+Then the rest of serving, counts zeroed before each phase: "serve http"
+runs the serve CLI's ``make_server`` over a ``--log_dir`` that
+``cli/convert.py`` wrote from the seeded weights (``--name_map self``):
+``/healthz``, ``/add`` of the 64 submaps with metadata, 64 ``/query`` from 8
+threads (each at rank 0 with its metadata), ``/query_batch``, ``/metrics``
+(average micro-batch above 1), a 400 and a 404; "serve drain" runs the CLI
+in a subprocess, which warms up before it binds and on SIGTERM drains and
+saves (``--save_on_exit``): the saved DB equals its ``/embed`` descriptors
+and reloads. "convert" renames the weights to the tf1_epcnet layout (the
+importer's NAME_MAPS inverted) and to an unlabelled torch dict (``auto``),
+converts and serves each: descriptors bit-equal to the bridge's. "serve
+scale" runs ``scripts/serve_scale.run``: the fp32 and int8 ladders at 10^4,
+10^5 and 10^6 rows (planted submaps at rank 0, fused-query p50/p99 and qps,
+``device_bytes``, one query's transient memory, which at 2^20 int8 must stay
+below the 268 MB resident DB and within 10% of the 10^5 rung's; the full
+sort beside the blocked path at 10^5 and 10^6, ids equal) and the 8-thread load
+test; "serve ingest" adds 10^6 rows in the background while 8 threads
+query in rounds, once at a fixed capacity and once across a capacity
+doubling: every answer the exact top-5 of a prefix at least as long as the
+one visible when it was sent, every row visible after ``flush()``, and no
+query during the ingest longer than the longest query with no sync in
+flight plus the longest chunk. "sampling"
+holds each sampling op on the card to the CPU at B=2, N=4096, npoint=1024.
+
 Then recall@N evaluation ("evaluate"): ``cli/generate_tuples.py`` writes a
 synthetic dataset of 5 runs x 80 submaps x 4096 points at difficulty 0.5
 and its test pickles into a temporary directory; the full-width EPC-Net's
@@ -80,15 +104,22 @@ import io
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from epcnet_torch.cli import evaluate, export, generate_tuples, train
+from epcnet_torch.cli import convert, evaluate, export, generate_tuples, train
+from epcnet_torch.cli import serve as serve_cli
 from epcnet_torch.configs import (
     DataConfig,
     ExperimentConfig,
@@ -102,13 +133,14 @@ from epcnet_torch.evals import embed_entries, evaluate_dataset, get_recall
 from epcnet_torch.models import get_model, param_count
 from epcnet_torch.models.epcnet import adjacency_route
 from epcnet_torch.models.vlad_head import compute_dtype
-from epcnet_torch.ops import _build, adjacency, knn, knn_phases
+from epcnet_torch.ops import _build, adjacency, knn, knn_phases, sampling
 from epcnet_torch.ops.matmul import matmul_f32acc
-from epcnet_torch.scripts import knn_trace, train_bench
+from epcnet_torch.scripts import knn_trace, serve_scale, train_bench
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.mining import MiningCache
 from epcnet_torch.train.state import create_train_state
 from epcnet_torch.train.step import build_distill_step, build_embed_fn, build_train_step, to_device
+from epcnet_torch.utils import importer
 from epcnet_torch.utils.timing import cuda_ms
 from epcnet_torch.weights import (
     flat_grads,
@@ -828,6 +860,301 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
     return res
 
 
+def http_call(base: str, path: str, payload=None, timeout: float = 300):
+    """(status, JSON body) of one request to the serve CLI's server."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data, {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def tf1_epcnet_source(flat: dict) -> dict:
+    """``flat`` renamed to the tf1_epcnet layout by inverting the importer's
+    own NAME_MAPS (each regex's first alternative; TF conv kernels [1, 1,
+    in, out], TF centroids [1, D, K])."""
+    out = {}
+    for pattern, target in importer.NAME_MAPS["tf1_epcnet"].items():
+        src = re.sub(r"\(\?:([^|()]*)(?:\|[^()]*)?\)\??", r"\1", pattern).replace("g?", "")
+        assert re.fullmatch(pattern, src), (pattern, src)
+        name = ("batch_stats/" if target.rsplit("/", 1)[-1] in ("mean", "var")
+                else "params/") + target
+        v, leaf = flat[name], target.rsplit("/", 1)[-1]
+        out[src] = v[None, None] if leaf == "kernel" else v.T[None] if leaf == "centroids" else v
+    assert len(out) == len(flat), (len(out), len(flat))
+    return out
+
+
+def serve_http_phase(flat: dict, sub: np.ndarray, tmp: str) -> dict:
+    """The serve CLI on the card over a ``--log_dir`` that ``cli/convert``
+    wrote from ``flat`` (``--name_map self``): ``make_server`` in process,
+    then the CLI in a subprocess drained by SIGTERM. Returns what the
+    timing lines print, with the launch counts under ``"counts"``."""
+    log_dir, src = os.path.join(tmp, "converted"), os.path.join(tmp, "seeded.npz")
+    np.savez(src, **flat)
+    convert.main(["--source", src, "--log_dir", log_dir, "--name_map", "self"])
+    res = {}
+    with Phase("serve http"):
+        zero_counts()
+        index = PlaceIndex.from_checkpoint(log_dir)
+        index.warmup()
+        srv, sched = serve_cli.make_server(index, port=0, k=5, max_wait_ms=5.0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            assert http_call(base, "/healthz") == (200, {"ok": True, "size": 0, "dim": 256})
+            meta = [f"submap_{i}" for i in range(len(sub))]
+            t0 = time.perf_counter()
+            assert http_call(base, "/add", {"points": sub.tolist(), "metadata": meta}) == \
+                (200, {"size": len(sub)})
+            res["add_64_s"] = time.perf_counter() - t0
+
+            def query(i):
+                t = time.perf_counter()
+                code, r = http_call(base, "/query", {"points": sub[i].tolist(), "k": 5})
+                return i, code, r, time.perf_counter() - t
+
+            with ThreadPoolExecutor(8) as ex:
+                answers = list(ex.map(query, range(len(sub))))
+            for i, code, r, _ in answers:
+                assert code == 200 and r["ids"][0] == i and r["metadata"][0] == meta[i], (i, r)
+            lat = sorted(a[3] for a in answers)
+            code, rb = http_call(base, "/query_batch", {"points": sub[:8].tolist(), "k": 3})
+            assert code == 200 and [row[0] for row in rb["ids"]] == list(range(8)), rb
+            code, m = http_call(base, "/metrics")
+            assert code == 200 and m["scheduler"]["avg_batch"] > 1, m["scheduler"]
+            assert m["scheduler"]["errors"] == 0 and m["index"]["size"] == len(sub)
+            bad = http_call(base, "/query", {"points": sub[0].tolist(), "k": 6})
+            assert bad[0] == 400 and "error" in bad[1], bad
+            assert http_call(base, "/metricz")[0] == 404
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            sched.stop()
+        counts = read_counts()
+        assert counts["K1"] >= 1 and counts["K1 k>32"] == 0, counts
+        res.update(queries=len(answers), query_p50_ms=lat[len(lat) // 2] * 1e3,
+                   query_max_ms=lat[-1] * 1e3, avg_batch=m["scheduler"]["avg_batch"],
+                   dispatches=m["scheduler"]["dispatches"])
+        del index
+        torch.cuda.empty_cache()
+    log(f"phase serve http: 64 submaps added over HTTP, 64 /query from 8 threads at rank 0 "
+        f"with metadata, avg micro-batch {res['avg_batch']:.2f}; launches {counts}")
+
+    with Phase("serve drain"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        saved, out_log = os.path.join(tmp, "saved.npz"), os.path.join(tmp, "serve.log")
+        with open(out_log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-u", "-m", "epcnet_torch.cli.serve", "--log_dir", log_dir,
+                 "--port", str(port), "--k", "5", "--save_on_exit", saved],
+                stdout=out, stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(
+                    __file__)))
+        base = f"http://127.0.0.1:{port}"
+        try:
+            deadline, up = time.time() + 300, None
+            while up is None and time.time() < deadline:
+                assert proc.poll() is None, open(out_log).read()[-3000:]
+                try:
+                    up = http_call(base, "/healthz", timeout=10)
+                except OSError:
+                    time.sleep(0.5)
+            assert up == (200, {"ok": True, "size": 0, "dim": 256}), open(out_log).read()
+            code, d = http_call(base, "/embed", {"points": sub[:8].tolist()})
+            assert code == 200
+            assert http_call(base, "/add", {"points": sub[:8].tolist(),
+                                            "metadata": list(range(8))}) == (200, {"size": 8})
+            code, q = http_call(base, "/query", {"points": sub[3].tolist(), "k": 1})
+            assert code == 200 and q["ids"] == [3] and q["metadata"] == [3], q
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+                raise
+        text = open(out_log).read()
+        assert rc == 0 and "server stopped" in text, text[-3000:]
+        assert text.index("warmup: embed+query ran") < text.index("serving on"), text
+        with np.load(saved, allow_pickle=True) as z:
+            db, smeta = z["db"], list(z["meta"])
+        assert np.array_equal(db, np.asarray(d["descriptors"], np.float32)), "saved DB"
+        assert smeta == list(range(8))
+        ix = PlaceIndex.from_checkpoint(log_dir)
+        ix.load_db(saved)
+        assert np.array_equal(ix._db, db) and ix.metadata([5]) == [5]
+        ids, _ = ix.query(sub[:8], k=1)
+        np.testing.assert_array_equal(ids[:, 0], np.arange(8))
+        res["drain"] = {"rc": rc, "saved_rows": int(len(db))}
+        del ix
+        torch.cuda.empty_cache()
+    log("phase serve drain: the CLI in a subprocess warmed up before it bound, took 8 "
+        "submaps, drained on SIGTERM; the saved DB equals its /embed descriptors and "
+        "reloads to rank-0 self-retrieval")
+    res["counts"] = counts
+    return res
+
+
+def convert_phase(cfg: ModelConfig, flat: dict, sub: np.ndarray, tmp: str) -> dict:
+    """``flat`` renamed to the tf1_epcnet layout and as an unlabelled torch
+    dict, each converted (``cli/convert``) and served from its run
+    directory: descriptors bit-equal to the bridge's (``load_flat_variables``
+    through ``build_embed_fn``)."""
+    with Phase("convert"):
+        zero_counts()
+        tf_src = os.path.join(tmp, "tf1_epcnet.npz")
+        np.savez(tf_src, **tf1_epcnet_source(flat))
+        model = load_flat_variables(get_model(cfg, "cpu"), flat)
+        pt_src = os.path.join(tmp, "unlabelled.pt")
+        torch.save({f"v{i}": t for i, t in enumerate(model.state_dict().values())}, pt_src)
+        want = build_embed_fn(cfg, variables=flat)(torch.tensor(sub[:8], device="cuda"))
+        got = {}
+        for name, src, extra in (("tf1_epcnet", tf_src, ["--name_map", "tf1_epcnet"]),
+                                 ("auto", pt_src, ["--name_map", "auto"])):
+            log_dir = convert.main(["--source", src, "--log_dir", os.path.join(tmp, name)]
+                                   + extra)
+            ix = PlaceIndex.from_checkpoint(log_dir, embed_batch=8)
+            ix.add(sub[:8])
+            ids, _ = ix.query(sub[:8], k=1)
+            np.testing.assert_array_equal(ids[:, 0], np.arange(8))
+            d = torch.from_numpy(ix.embed(sub[:8]))
+            got[name] = float((d - want.cpu()).abs().max())
+            assert torch.equal(d, want.cpu()), (name, got[name])
+            del ix
+        counts = read_counts()
+        assert counts["K1"] >= 1, counts
+        torch.cuda.empty_cache()
+    log(f"phase convert: tf1_epcnet names and an unlabelled torch dict converted and served; "
+        f"descriptors bit-equal to the bridge's (max abs diff {got}); launches {counts}")
+    return {"max_abs_diff": got, "counts": counts}
+
+
+def sampling_phase(dev) -> dict:
+    """Each sampling op on the card against the same op on the CPU at B=2,
+    N=4096, npoint=1024: ids exactly, values within 1e-6."""
+    with Phase("sampling"):
+        x = submaps(np.random.default_rng(1024), 2, 4096)
+        rng = np.random.default_rng(5)
+        feats = rng.standard_normal((2, 1024, 16)).astype(np.float32)
+        probs = rng.random((2, 4096)).astype(np.float32)
+        probs /= probs.sum(-1, keepdims=True)
+        draws = rng.random((2, 1024)).astype(np.float32)
+
+        def ops(d):
+            xs = torch.tensor(x, device=d)
+            fps = sampling.farthest_point_sample(xs, 1024)
+            new = sampling.gather_point(xs, fps)
+            bq = sampling.ball_query(0.1, 32, xs, new)
+            dist, idx = sampling.three_nn(xs, new)
+            return {"fps": fps, "gather_point": new, "ball_query": bq,
+                    "group_point": sampling.group_point(xs, bq),
+                    "prob_sample": sampling.prob_sample(torch.tensor(probs, device=d),
+                                                        torch.tensor(draws, device=d)),
+                    "three_nn_idx": idx, "three_nn_dist": dist,
+                    "three_interpolate": sampling.three_interpolate(
+                        torch.tensor(feats, device=d), idx, dist)}
+
+        t0 = time.perf_counter()
+        card = ops(dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        host = ops("cpu")
+        err = {}
+        for name, want in host.items():
+            got = card[name].cpu()
+            if want.is_floating_point():
+                err[name] = float((got - want).abs().max())
+                assert err[name] <= 1e-6, (name, err[name])
+            else:
+                assert torch.equal(got, want), name
+        assert len(set(card["fps"][0].tolist())) == 1024
+    log(f"phase sampling: B=2, N=4096, npoint=1024 on the card equal to the CPU (ids exact; "
+        f"values max abs {err}); the card's pass {card_s:.2f} s with FPS's 1023 steps")
+    return {"max_abs_err": err, "card_s": card_s}
+
+
+def serving_phases(dev, cfg: ModelConfig, flat: dict, embed, sub: np.ndarray) -> dict:
+    """The serving slice's phases at full width (see the module docstring):
+    "serve http" and "serve drain", "convert", "serve scale", "serve
+    ingest" and "sampling". Returns their results, with each phase's launch
+    counts under ``"counts"``."""
+    with tempfile.TemporaryDirectory(prefix="epcnet_serve_") as tmp:
+        http = serve_http_phase(flat, sub, tmp)
+        conv = convert_phase(cfg, flat, sub, tmp)
+    http_counts, convert_counts = http.pop("counts"), conv.pop("counts")
+    with Phase("serve scale"):
+        zero_counts()
+        scale = serve_scale.run(dev, embed=embed, do_load=True)
+        scale_counts = read_counts()
+        assert scale_counts["K1"] >= 1 and scale_counts["K1 k>32"] == 0, scale_counts
+        resident = (1 << 20) * 256  # a 2^20-row int8 DB
+        for qmode, rows in scale["ladder"].items():
+            for r in rows:
+                log(f"  serve scale {qmode}: rows {r['rows']}, capacity {r['capacity']}, "
+                    f"device_bytes {r['device_bytes']}, query transient "
+                    f"{r['retrieval_transient_bytes']} B (fused {r['fused_query_transient_bytes']}"
+                    f" B), p50 {r['p50_ms']:.2f} / p99 {r['p99_ms']:.2f} ms, qps "
+                    f"{r['qps']:.1f}, planted rank 0 {r['planted_rank0']}")
+                assert r["planted_rank0"] == "32/32", r
+            for r in rows[1:]:  # 10^5 and 10^6 rows
+                pvb = r["plain_vs_blocked"]
+                assert pvb["ids_equal"] and pvb["max_abs_dist_diff"] == 0.0, pvb
+                log(f"  serve scale {qmode} at {r['rows']} rows: full sort "
+                    f"{pvb['plain_ms']:.3f} ms, {pvb['plain_transient_bytes']} B; blocked "
+                    f"{pvb['blocked_ms']:.3f} ms, {pvb['blocked_transient_bytes']} B")
+        i8 = {r["rows"]: r for r in scale["ladder"]["int8"]}
+        t5, t6 = (i8[n]["retrieval_transient_bytes"] for n in (100_000, 1_000_000))
+        assert i8[1_000_000]["capacity"] == 1 << 20 and t6 < resident, (t6, resident)
+        assert abs(t6 - t5) < 0.1 * t5, (t5, t6)
+        assert not scale["load"]["self_retrieval_fails"], scale["load"]
+        torch.cuda.empty_cache()
+    log(f"phase serve scale: 10^4-10^6 rows fp32 and int8, every planted submap at rank 0; "
+        f"int8 query transient {t5} B at 10^5 rows, {t6} B at 10^6 (resident 2^20 rows: "
+        f"{resident} B); load p50 {scale['load']['p50_ms']:.2f} / p99 "
+        f"{scale['load']['p99_ms']:.2f} ms, avg batch {scale['load']['avg_batch']:.2f}; "
+        f"launches {scale_counts}")
+    with Phase("serve ingest"):
+        zero_counts()
+        ingest = serve_scale.run(dev, rungs=(), quantize=(), do_ingest=True, embed=embed)
+        ingest = {w: ingest[w] for w in ("ingest", "ingest_growth")}
+        ingest_counts = read_counts()
+        assert ingest_counts["K1"] >= 1, ingest_counts
+        for w, ing in ingest.items():
+            assert not ing["errors"] and ing["threads_alive"] == 0, (w, ing)
+            assert ing["n_bad_answers"] == 0, (w, ing["answers_not_a_prefix_top_k"])
+            assert ing["all_visible_after_flush"], (w, ing)
+            assert ing["capacity_fixed" if w == "ingest" else "capacity_doubled"], (w, ing)
+            assert ing["during"]["n"] > 0 and ing["within_bound"], (w, ing)
+        assert len(ingest["ingest_growth"]["growth_chunk_ms"]) == 1, ingest["ingest_growth"]
+        torch.cuda.empty_cache()
+    for w, ing in ingest.items():
+        growth = (f", the growth chunk {ing['growth_chunk_ms'][0]:.2f} ms "
+                  f"({ing['capacity_before']} -> {ing['capacity']} rows)"
+                  if ing["growth_chunk_ms"] else f" (capacity {ing['capacity']} rows)")
+        log(f"phase serve {w.replace('_', ' ')}: 10^6 rows in the background over "
+            f"{ing['base_rows']}, 8 threads in rounds (avg batch {ing['avg_batch']:.2f}); "
+            f"p50/p99/max idle {ing['idle']['p50_ms']:.2f}/{ing['idle']['p99_ms']:.2f}/"
+            f"{ing['idle']['max_ms']:.2f}, during {ing['during']['p50_ms']:.2f}/"
+            f"{ing['during']['p99_ms']:.2f}/{ing['during']['max_ms']:.2f}, after flush "
+            f"{ing['after_flush']['p50_ms']:.2f}/{ing['after_flush']['p99_ms']:.2f}/"
+            f"{ing['after_flush']['max_ms']:.2f} ms; chunk {ing['chunk_ms_median']:.2f} ms "
+            f"(max {ing['chunk_ms_max']:.2f}){growth}; longest during "
+            f"{ing['during']['max_ms']:.2f} ms against the bound {ing['bound_ms']:.2f} "
+            f"(margin {ing['margin_ms']:.2f}); {ing['answers_checked']} answers each the "
+            f"exact top-5 of a prefix")
+    log(f"phase serve ingest: launches {ingest_counts}")
+    samp = sampling_phase(dev)
+    return {"http": http, "convert": conv, "scale": scale, "ingest": ingest,
+            "sampling": samp, "counts": {"serve http": http_counts, "convert": convert_counts,
+                                         "serve scale": scale_counts,
+                                         "serve ingest": ingest_counts}}
+
+
 def spill_bytes(report: str) -> dict:
     """{kernel: spill store + load bytes} from a ptxas -v report."""
     out, name = {}, None
@@ -1157,6 +1484,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"phase serve capacity: launches {cap_counts}")
 
+    # -- 10'. the serving slice: HTTP, scale, background ingest, convert ----
+    served = serving_phases(dev, cfg, flat, embed, sub)
+    http, conv, scale, ingest, samp = (served[p] for p in ("http", "convert", "scale",
+                                                            "ingest", "sampling"))
+
     # -- 10a. recall@N evaluation through the CLIs, launch counts zeroed ---
     with tempfile.TemporaryDirectory(prefix="epcnet_eval_") as tmp:
         ev = evaluate_phase(embed, cfg, flat, tmp)
@@ -1222,7 +1554,8 @@ def main() -> int:
         kernels = []
 
         path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
-                       "evaluate": eval_counts, "knn trace": trace_counts, **train_counts}
+                       **served["counts"], "evaluate": eval_counts, "knn trace": trace_counts,
+                       **train_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
                   shape, counter, **extra):
@@ -1405,6 +1738,10 @@ def main() -> int:
                               "query1_ms_median": sorted(q_ms)[len(q_ms) // 2],
                               "query1_ms_min": min(q_ms), "query1_ms": q_ms,
                               "db_rows": len(ix)}}))
+    log(json.dumps({"serve_http": http}))
+    log(json.dumps({"serve_scale": scale}))
+    log(json.dumps({"serve_ingest": ingest}))
+    log(json.dumps({"convert": conv, "sampling": samp}))
     log(json.dumps({"evaluate": ev}))
     log(json.dumps({"bf16_gemm_check": {**gaps, "tolerance": BF16_TOL}}))
     log(json.dumps({"train": trained}))

@@ -26,9 +26,9 @@ from epcnet_torch.data.synthetic import generate_synthetic_dataset
 from epcnet_torch.data.tuples import construct_query_dict, scan_runs
 from epcnet_torch.device import resolve_device
 from epcnet_torch.evals.hooks import make_recall_eval_hook
-from epcnet_torch.cli.export import read_run_config, restore_model
 from epcnet_torch.models import get_model
 from epcnet_torch.parallel import PreemptionGuard
+from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.train.step import build_distill_step
 from epcnet_torch.train.trainer import Trainer
 from epcnet_torch.utils.logging import log_string

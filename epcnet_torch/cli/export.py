@@ -17,31 +17,9 @@ from __future__ import annotations
 import argparse
 import os
 
-from epcnet_torch.configs import ExperimentConfig, apply_overrides
-from epcnet_torch.train.checkpoint import CheckpointManager
-from epcnet_torch.train.state import create_train_state
+from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.weights import flat_variables, save_export
-
-
-def read_run_config(log_dir: str, config: str | None = None, overrides=()) -> ExperimentConfig:
-    """The run's config: ``config`` or ``<log_dir>/config.json`` (else the
-    defaults), with ``overrides`` on top."""
-    path = config or os.path.join(log_dir, "config.json")
-    cfg = ExperimentConfig()
-    if os.path.isfile(path):
-        with open(path) as f:
-            cfg = ExperimentConfig.from_json(f.read())
-    return apply_overrides(cfg, list(overrides)) if overrides else cfg
-
-
-def restore_model(log_dir: str, cfg: ExperimentConfig, device="cpu"):
-    """(model, step) of the latest checkpoint under ``<log_dir>/ckpt``;
-    ``FileNotFoundError`` where there is none."""
-    state = create_train_state(cfg.model, cfg.train, device)
-    state = CheckpointManager(os.path.join(log_dir, "ckpt"),
-                              cfg.train.keep_checkpoints).restore(state, require=True)
-    return state.model, state.step
 
 
 def main(argv=None) -> str:

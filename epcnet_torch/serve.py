@@ -1,7 +1,8 @@
 """Descriptor serving: an online place-recognition index (twin of
 ``epcnet_tpu/serve.py``, single device).
 
-  service = PlaceIndex.from_export("log/export")       # weights + config
+  service = PlaceIndex.from_checkpoint(log_dir)        # a port training run
+  service = PlaceIndex.from_export("log/export")       # or an export pair
   service.add(points_batch, metadata...)               # extend the DB
   ids, dists = service.query(points_batch, k=25)       # embed + retrieve
   service.save(path) / service.load_db(path)           # persistence
@@ -10,25 +11,54 @@
   ids, dists = sched.submit(points_one_submap).result()
 
 Embedding runs the model at a fixed batch (``embed_batch``, padded tail);
-retrieval is the exact fp32 top-k of ``ops/retrieval.py``. The device DB is
-append-only and grows by doubling, its filler rows far away (1e6 in fp32;
-int8 127 with scale 1e6), so ids stay valid and the tail never wins.
-``quantize="int8"`` stores the device DB int8 + per-row scale; the host DB
-stays the fp32 master, so save/load are lossless.
+retrieval is the exact fp32 top-k of ``ops/retrieval.py``, a block of rows
+at a time, over the synced prefix of the device DB (``n_valid``). The
+device DB is append-only and grows by doubling (filler rows 1e6 in fp32;
+int8 127 with scale 1e6), so ids stay valid. ``quantize="int8"`` stores
+the device DB int8 + per-row scale; the host DB stays the fp32 master, so
+save/load are lossless.
 
-Not ported yet: ``sync_mode="background"`` (ROADMAP item 5) and a ``mesh``
-for sharded retrieval (ROADMAP item 6). ``warm_on_grow`` has no counterpart:
-eager PyTorch compiles nothing per DB capacity, so a capacity growth costs
-no compile to hide.
+``sync_mode`` says when added rows become query-visible. ``"blocking"``:
+read-your-writes, a query first syncs every row added before it.
+``"background"``: adds kick a daemon thread that syncs in
+``sync_chunk_rows`` chunks, and a query runs at once against the resident
+consistent prefix (the first query waits for the first chunk); ``flush()``
+gives read-your-writes on demand, and a sync failure surfaces on the next
+query or ``flush()``.
+
+On the card every sync runs on a CUDA stream of its own: the chunk goes
+from a pinned staging buffer (``non_blocking``) into the device buffer,
+and an event recorded after it is installed with the buffer. A query makes
+its stream wait on that event before it reads the buffer, and marks the
+buffer as used on its stream (``record_stream``), so the caching allocator
+does not hand the memory out while the query still reads it (a buffer
+replaced at a capacity growth). A large chunk thus never stalls the
+default stream that queries run on.
+
+A ``mesh`` for sharded retrieval is ROADMAP item 6. ``warm_on_grow`` has
+no counterpart: eager PyTorch compiles nothing per DB capacity, so a
+capacity growth costs no compile to hide.
 
 Concurrency: a lock guards the host bookkeeping; device work runs outside
-it on immutable snapshots (the device append is functional: a grown or
-appended buffer is a new tensor, never written in place under a reader).
+it on snapshots (buffer, synced rows P, event). A chunk is written in place
+past the synced prefix, rows no snapshot reads: a query's retrieval takes
+only rows below its P as candidates, so rows being written past it are
+never seen, and rows below P are never written again. Only a capacity
+growth copies the prefix into a new buffer. (The JAX index appends
+functionally, a new buffer a chunk: at 2^21 fp32 rows a 32,768-row chunk
+(32 MB) would fill, read and write 6 GB of device memory, and allocate
+2 GB.) The host master is a list of fixed-size segments
+(``HOST_SEGMENT_ROWS``), which adds write outside that lock (one add at a
+time): an add costs its own rows, and no add copies the whole DB, as the
+add that grows a buffer grown by doubling would (at 10^6 fp32 rows a 1 GB
+copy into 2 GB of fresh pages, which held queries running beside it for
+tens of milliseconds on an H100 host).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import queue
 import threading
@@ -45,8 +75,15 @@ from epcnet_torch.ops.retrieval import (
     topk_neighbors,
     topk_neighbors_quantized,
 )
+from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.train.step import build_embed_fn
-from epcnet_torch.weights import load_export
+from epcnet_torch.weights import flat_variables, load_export
+
+# rows of one host segment (64 MB at dim 256); a full segment is never
+# copied again
+HOST_SEGMENT_ROWS = 1 << 16
+
+_MESH = "a mesh (sharded retrieval) is not ported yet (ROADMAP item 6, Multi-device)"
 
 
 def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
@@ -82,15 +119,8 @@ class PlaceIndex:
             raise ValueError(
                 f"sync_mode={sync_mode!r} not in {{'blocking', 'background'}}"
             )
-        if sync_mode == "background":
-            raise NotImplementedError(
-                "sync_mode='background' is not ported yet (ROADMAP item 5, Serving)"
-            )
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh (sharded retrieval) is not ported yet (ROADMAP item 6, "
-                "Multi-device)"
-            )
+            raise NotImplementedError(_MESH)
         self.device = resolve_device(device)
         self.sync_mode = sync_mode
         self.num_points = num_points
@@ -106,15 +136,25 @@ class PlaceIndex:
         chunk = sync_chunk_rows or 8 * block_rows
         self.sync_chunk_rows = max(block_rows, -(-chunk // block_rows) * block_rows)
         self.quantize = quantize
-        self._db = np.zeros((0, descriptor_dim), np.float32)
+        # host fp32 master: rows [:_n] of segments of HOST_SEGMENT_ROWS rows,
+        # the last partly filled; an add replaces the list, never mutates it
+        self._segs: list[np.ndarray] = []
+        self._n = 0
         self._meta: list = []
         self._dev_db = None  # [capacity, dim] device tensor, far-padded tail
         self._dev_scale = None  # [capacity, 1] fp32 row scales (int8 mode)
-        self._dev_rows = 0  # rows of _db already resident on device
-        self._lock = threading.RLock()  # guards _db/_meta/_dev_* bookkeeping
+        self._dev_rows = 0  # host rows already resident on the device
+        self._dev_ready = None  # CUDA event after which _dev_db/_dev_scale are written
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._staging = None  # pinned host rows of one chunk (card)
+        self._add_lock = threading.Lock()  # one add at a time writes the host master
+        self._lock = threading.RLock()  # guards _segs/_n/_meta/_dev_* bookkeeping
         # serializes device-sync work, which runs outside _lock; lock order
-        # is always _sync_lock -> _lock
+        # is always _add_lock -> _sync_lock -> _lock
         self._sync_lock = threading.Lock()
+        self._sync_cv = threading.Condition(self._lock)  # _dev_rows progress
+        self._sync_thread = None  # background worker (sync_mode="background")
+        self._sync_error: BaseException | None = None
         self._counters = {"adds": 0, "rows_added": 0, "queries": 0,
                           "query_rows": 0, "dev_syncs": 0}
 
@@ -127,15 +167,36 @@ class PlaceIndex:
         device: str | torch.device | None = None,
     ) -> "PlaceIndex":
         """An index over the model in ``<basename>.npz/.json`` as written by
-        ``epcnet_tpu/cli/export.py`` (the counterpart of the JAX
-        ``from_checkpoint``: Orbax checkpoints are not readable without
-        JAX)."""
+        ``epcnet_tpu/cli/export.py`` or ``weights.save_export``: how weights
+        the JAX package trained reach the port."""
         cfg, flat = load_export(basename)
         embed = build_embed_fn(cfg.model, device, variables=flat)
         return cls(embed, cfg.model.output_dim, embed_batch, quantize=quantize,
                    max_k=max_k, num_points=cfg.data.num_points,
                    sync_mode=sync_mode, sync_chunk_rows=sync_chunk_rows,
                    device=device)
+
+    @classmethod
+    def from_checkpoint(
+        cls, log_dir: str, mesh=None, embed_batch: int = 32,
+        quantize: str = "none", max_k: int = 25, sync_mode: str = "blocking",
+        sync_chunk_rows: int | None = None,
+        device: str | torch.device | None = None,
+    ) -> "PlaceIndex":
+        """An index over the latest port checkpoint of a run
+        (``<log_dir>/ckpt``, ``train/checkpoint.py``; ``FileNotFoundError``
+        where there is none), with ``<log_dir>/config.json`` (the defaults
+        where it is absent)."""
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        dev = resolve_device(device)  # before any work: no card, no index
+        cfg = read_run_config(log_dir)
+        model, _ = restore_model(log_dir, cfg)
+        embed = build_embed_fn(cfg.model, dev, variables=flat_variables(model))
+        return cls(embed, cfg.model.output_dim, embed_batch, quantize=quantize,
+                   max_k=max_k, num_points=cfg.data.num_points,
+                   sync_mode=sync_mode, sync_chunk_rows=sync_chunk_rows,
+                   device=dev)
 
     # ------------------------------------------------------------------
     def _embed_padded(self, points: np.ndarray) -> torch.Tensor:
@@ -160,21 +221,43 @@ class PlaceIndex:
         self.add_descriptors(self.embed(points), metadata)
 
     def add_descriptors(self, desc: np.ndarray, metadata: Sequence | None = None) -> None:
+        desc = np.asarray(desc, np.float32)
+        if desc.ndim != 2 or desc.shape[1] != self.dim:
+            raise ValueError(f"descriptors of shape {desc.shape}; this index takes "
+                             f"[n, {self.dim}]")
         if metadata is not None and len(metadata) != len(desc):
             # a silent mismatch would skew id->metadata for every later query
             raise ValueError(
                 f"metadata length {len(metadata)} != batch size {len(desc)}"
             )
-        with self._lock:
-            self._db = np.concatenate([self._db, np.asarray(desc, np.float32)], axis=0)
-            self._meta.extend(metadata if metadata is not None else [None] * len(desc))
-            self._counters["adds"] += 1
-            self._counters["rows_added"] += len(desc)
-        # the device sync is lazy (next query): adds stay cheap, bursts coalesce
+        with self._add_lock:
+            with self._lock:
+                n, segs = self._n, list(self._segs)
+            m = len(desc)
+            # outside _lock: readers take only rows [:n], which the new rows
+            # do not touch
+            _write_rows(segs, n, desc)
+            with self._lock:
+                self._segs, self._n = segs, n + m
+                self._meta.extend(metadata if metadata is not None else [None] * m)
+                self._counters["adds"] += 1
+                self._counters["rows_added"] += m
+        # "blocking": the device sync is lazy (next query), so adds stay cheap
+        # and bursts coalesce; "background": start syncing now
+        if self.sync_mode == "background":
+            self._kick_background_sync()
 
     def __len__(self) -> int:
         with self._lock:
-            return len(self._db)
+            return self._n
+
+    @property
+    def _db(self) -> np.ndarray:
+        """The host master as one [n, dim] fp32 array (a copy where it spans
+        segments): what ``save`` writes."""
+        with self._lock:
+            segs, n = self._segs, self._n
+        return _rows(segs, 0, n, self.dim)
 
     # ------------------------------------------------------------------
     def query(self, points: np.ndarray, k: int = 25):
@@ -186,35 +269,70 @@ class PlaceIndex:
         embed-then-retrieve."""
         n = points.shape[0]
         if self._embed is not None and 0 < n <= self.embed_batch and k <= self.max_k:
-            dbj, scj, kk = self._snapshot_db(n, k)
-            # top-k = min(max_k, capacity): the capacity tail is far-padded,
-            # so the first len(db) results are real and the host trim to
-            # kk <= len(db) is exact
+            dbj, scj, kk, rows = self._snapshot_db(n, k)
+            # top-k = min(max_k, capacity) over the synced prefix: its first
+            # kk <= rows results are real, so the host trim is exact
             k_fused = min(self.max_k, int(dbj.shape[0]))
             with torch.inference_mode():
                 desc = self._embed_padded(points)
-                idx, dist = self._retrieve(desc, dbj, scj, k_fused)
+                idx, dist = self._retrieve(desc, dbj, scj, k_fused, rows)
             return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
         return self.query_descriptors(self.embed(points), k)
 
     def _snapshot_db(self, n_query_rows: int, k: int):
-        """Consistent (dev_db, scale, clamped-k) snapshot after a full sync
-        (read-your-writes). The one place for the empty check, the k clamp
-        and the query counters."""
+        """Consistent (dev_db, scale, clamped-k, synced rows) snapshot, ready
+        to read on the caller's stream. The one place for the empty check, the k
+        clamp, the sync policy and the query counters.
+
+        "blocking": after a full sync (read-your-writes). "background": at
+        once, against the resident prefix (the first query ever waits for
+        chunk one)."""
         with self._lock:
-            if len(self._db) == 0:
+            if self._n == 0:
                 raise ValueError("empty index")
             if k < 1:
                 raise ValueError(f"k={k} must be >= 1")
-        self._ensure_synced()
+        if self.sync_mode == "blocking":
+            self._ensure_synced()
+        else:
+            self._kick_background_sync()
         with self._lock:
+            while self._dev_rows == 0 or self._dev_db is None:
+                # nothing resident yet: the first chunk is the least a query
+                # can run against (one sync_chunk_rows transfer, not the backlog)
+                self._raise_sync_error()
+                self._sync_cv.wait(timeout=1.0)
+            self._raise_sync_error()
+            # clamp to the visible prefix: the far-padded tail keeps the
+            # top-kk of the prefix exact
             kk = min(k, self._dev_rows)
             self._counters["queries"] += 1
             self._counters["query_rows"] += n_query_rows
-            return self._dev_db, self._dev_scale, kk
+            dbj, scj, ready, rows = (self._dev_db, self._dev_scale, self._dev_ready,
+                                     self._dev_rows)
+        self._await(ready, dbj, scj)
+        return dbj, scj, kk, rows
+
+    def _await(self, ready, *tensors) -> None:
+        """Order the caller's stream after the sync that wrote ``tensors``
+        and keep their memory from reuse until that stream is done."""
+        if ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(ready)
+        for t in tensors:
+            if t is not None:
+                t.record_stream(stream)
+
+    def _raise_sync_error(self) -> None:
+        """Surface a background-sync failure on the caller's thread (call
+        under the lock) instead of losing it in a daemon thread."""
+        if self._sync_error is not None:
+            err, self._sync_error = self._sync_error, None
+            raise RuntimeError("background device sync failed") from err
 
     def query_descriptors(self, desc: np.ndarray, k: int = 25):
-        dbj, scj, kk = self._snapshot_db(desc.shape[0], k)
+        dbj, scj, kk, rows = self._snapshot_db(desc.shape[0], k)
         n = desc.shape[0]
         # the query batch is padded to an embed_batch multiple (fixed shapes)
         q = torch.from_numpy(_pad_rows(np.asarray(desc, np.float32),
@@ -222,69 +340,146 @@ class PlaceIndex:
         # capacity-keyed top-k for k <= max_k, as on the fused path
         k_prog = min(self.max_k, int(dbj.shape[0])) if k <= self.max_k else kk
         with torch.inference_mode():
-            idx, dist = self._retrieve(q, dbj, scj, k_prog)
+            idx, dist = self._retrieve(q, dbj, scj, k_prog, rows)
         return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
 
-    def _retrieve(self, q: torch.Tensor, dbj, scj, k_prog: int):
-        """The one dispatch point for descriptor retrieval (int8 vs fp32),
-        shared by both query paths and warmup."""
+    def _retrieve(self, q: torch.Tensor, dbj, scj, k_prog: int, rows: int):
+        """The one dispatch point for descriptor retrieval (int8 vs fp32)
+        over the first ``rows`` rows, shared by both query paths and
+        warmup."""
         if self.quantize == "int8":
-            return topk_neighbors_quantized(q, dbj, scj, k_prog)
-        return topk_neighbors(q, dbj, k_prog)
+            return topk_neighbors_quantized(q, dbj, scj, k_prog, n_valid=rows)
+        return topk_neighbors(q, dbj, k_prog, n_valid=rows)
+
+    # ------------------------------------------------------------------
+    def flush(self) -> None:
+        """Block until every row added so far is device-resident: the
+        read-your-writes barrier of ``sync_mode="background"`` (a no-op
+        after any query in "blocking" mode). Raises a pending sync failure."""
+        self._ensure_synced()
 
     def _ensure_synced(self) -> None:
         """Bring the device DB up to date, one sync_chunk_rows chunk at a
-        time; only the querying caller waits."""
+        time; only the calling thread waits."""
         while True:
             with self._sync_lock:
+                with self._lock:
+                    self._raise_sync_error()
                 backlog = self._sync_chunk()
             if backlog <= 0:
                 return
 
+    def _kick_background_sync(self) -> None:
+        """Start (or reuse) the daemon sync worker. The worker clears
+        _sync_thread under the lock only after it sees no backlog, so an add
+        racing its exit either finds it alive or starts a fresh one."""
+        with self._lock:
+            if self._sync_thread is not None:
+                return
+            if self._dev_rows == self._n and self._dev_db is not None:
+                return
+            t = threading.Thread(target=self._background_sync_loop,
+                                 daemon=True, name="placeindex-sync")
+            self._sync_thread = t
+        t.start()
+
+    def _background_sync_loop(self) -> None:
+        while True:
+            try:
+                with self._sync_lock:
+                    backlog = self._sync_chunk()
+            except BaseException as e:  # surfaces on the next query/flush
+                with self._lock:
+                    self._sync_error = e
+                    self._sync_thread = None
+                    self._sync_cv.notify_all()
+                return
+            if backlog <= 0:
+                with self._lock:
+                    if self._dev_rows == self._n:
+                        self._sync_thread = None
+                        return
+                    # rows landed between the chunk and this check: loop
+
     def _sync_chunk(self) -> int:
         """Advance the device DB by at most sync_chunk_rows rows; returns the
-        remaining backlog. Caller holds _sync_lock. The host DB is
-        append-only and the device buffers are replaced, never written in
-        place, so a query running on an older snapshot stays consistent."""
+        remaining backlog. Caller holds _sync_lock. The rows go past the
+        synced prefix (no snapshot takes them as candidates), or, at a
+        capacity growth, into a new buffer; the install then publishes them."""
         with self._lock:
-            db_ref = self._db  # append-only: this array object never mutates
-            n = len(db_ref)
-            dev_db, dev_scale, dev_rows = self._dev_db, self._dev_scale, self._dev_rows
-        if n == 0 or (dev_rows == n and dev_db is not None):
+            segs, n = self._segs, self._n  # rows [:n] never change
+            dev_db, dev_scale, start = self._dev_db, self._dev_scale, self._dev_rows
+        if n == 0 or (start == n and dev_db is not None):
             return 0
-        cap = 0 if dev_db is None else dev_db.shape[0]
-        # this chunk's rows, rounded up to a block multiple (1e6 filler rows
-        # in the rounding tail are overwritten by a later sync)
-        start = (dev_rows // self.block_rows) * self.block_rows
         end = min(n, start + self.sync_chunk_rows)
-        rows = -(-end // self.block_rows) * self.block_rows
-        upd = np.full((rows - start, self.dim), 1e6, np.float32)
-        upd[: end - start] = db_ref[start:end]
-        upd = torch.from_numpy(upd).to(self.device)
-        quant = self.quantize == "int8"
-        new_cap = max(self.block_rows, cap)
-        while new_cap < rows:
-            new_cap *= 2
-        # a new buffer every sync (functional append); growth doubles
-        db = torch.full((new_cap, self.dim), 127 if quant else 1e6,
-                        dtype=torch.int8 if quant else torch.float32,
-                        device=self.device)
-        if dev_db is not None:
-            db[:cap] = dev_db
-        if quant:
-            scale = torch.full((new_cap, 1), 1e6, dtype=torch.float32,
-                               device=self.device)
-            if dev_scale is not None:
-                scale[:cap] = dev_scale
-            db[start:rows], scale[start:rows] = quantize_descriptors(upd)
-        else:
-            scale = None
-            db[start:rows] = upd
+        capacity = max(self.block_rows, 0 if dev_db is None else dev_db.shape[0])
+        while capacity < end:
+            capacity *= 2
+        upd = self._stage(segs, start, end)
+        with (torch.cuda.stream(self._stream) if self._stream is not None
+              else contextlib.nullcontext()):
+            dev_db, dev_scale = self._append_fn(dev_db, dev_scale, upd, start, capacity)
+            ready = None
+            if self._stream is not None:
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
         with self._lock:
-            self._dev_db, self._dev_scale = db, scale
+            self._dev_db, self._dev_scale, self._dev_ready = dev_db, dev_scale, ready
             self._dev_rows = end
             self._counters["dev_syncs"] += 1
-            return len(self._db) - end
+            self._sync_cv.notify_all()
+            backlog = self._n - end
+        if ready is not None:
+            ready.synchronize()  # the next chunk reuses the staging buffer
+        return backlog
+
+    def _stage(self, segs: list, start: int, end: int) -> torch.Tensor:
+        """Host rows [start, end) as a tensor: on the card a view of the
+        pinned staging buffer, filled segment by segment (a pageable source
+        would make the copy synchronous)."""
+        if self._stream is None:
+            return torch.from_numpy(_rows(segs, start, end, self.dim))
+        if self._staging is None:
+            self._staging = torch.empty((self.sync_chunk_rows, self.dim),
+                                        dtype=torch.float32, pin_memory=True)
+        out = self._staging[:end - start]
+        at = 0
+        for piece in _pieces(segs, start, end):
+            out[at:at + len(piece)].copy_(torch.from_numpy(piece))
+            at += len(piece)
+        return out
+
+    def _append(self, db, scale, upd: torch.Tensor, start: int, capacity: int):
+        """(db, scale) with the host rows ``upd`` written from row ``start``
+        (int8 mode: quantized on the device, with their scales): in place
+        when ``db`` has ``capacity`` rows, else in a new [capacity, dim]
+        buffer, filler past the copied prefix [0, start)."""
+        quant = self.quantize == "int8"
+        if db is None or db.shape[0] < capacity:
+            grown = torch.full((capacity, self.dim), 127 if quant else 1e6,
+                               dtype=torch.int8 if quant else torch.float32,
+                               device=self.device)
+            grown_scale = (torch.full((capacity, 1), 1e6, dtype=torch.float32,
+                                      device=self.device) if quant else None)
+            if db is not None:
+                grown[:start] = db[:start]
+                if quant:
+                    grown_scale[:start] = scale[:start]
+            db, scale = grown, grown_scale
+        upd = upd.to(self.device, non_blocking=True)
+        end = start + upd.shape[0]
+        if quant:
+            db[start:end], scale[start:end] = quantize_descriptors(upd)
+        else:
+            db[start:end] = upd
+        return db, scale
+
+    # the device append: the one seam tests slow down or break (an instance
+    # attribute overrides it). A class attribute, not self._append stored on
+    # the instance: that bound method would make a reference cycle, so that a
+    # dropped index kept its device and host buffers until a collection,
+    # which then freed gigabytes inside some unrelated query
+    _append_fn = _append
 
     def warmup(self, num_points: int | None = None) -> None:
         """Build the kernels and run one padded query before traffic: the
@@ -298,9 +493,11 @@ class PlaceIndex:
                 "with num_points=...)"
             )
         if len(self) > 0:
-            self._ensure_synced()
+            self._ensure_synced()  # full residency before traffic, any mode
             with self._lock:
-                dbj, scj = self._dev_db, self._dev_scale
+                dbj, scj, ready, rows = (self._dev_db, self._dev_scale, self._dev_ready,
+                                         self._dev_rows)
+            self._await(ready, dbj, scj)
         else:
             quant = self.quantize == "int8"
             dbj = torch.full((self.block_rows, self.dim), 127 if quant else 1e6,
@@ -308,13 +505,14 @@ class PlaceIndex:
                              device=self.device)
             scj = (torch.full((self.block_rows, 1), 1e6, device=self.device)
                    if quant else None)
+            rows = self.block_rows
         k = min(self.max_k, int(dbj.shape[0]))
         with torch.inference_mode():
             if self._embed is not None:
                 q = self._embed_padded(np.zeros((1, num_points, 3), np.float32))
             else:
                 q = torch.zeros((self.embed_batch, self.dim), device=self.device)
-            idx, _ = self._retrieve(q, dbj, scj, k)
+            idx, _ = self._retrieve(q, dbj, scj, k, rows)
         idx.cpu()  # waits for the device
 
     def metrics(self) -> dict:
@@ -327,7 +525,7 @@ class PlaceIndex:
                 if self._dev_scale is not None:
                     dev_bytes += self._dev_scale.numel() * 4
             return {
-                "size": len(self._db),
+                "size": self._n,
                 "dim": self.dim,
                 "quantize": self.quantize,
                 "sharded": False,
@@ -335,7 +533,7 @@ class PlaceIndex:
                 "device_rows_capacity": cap,
                 "device_bytes": int(dev_bytes),
                 "device_synced_rows": self._dev_rows,
-                "sync_backlog_rows": len(self._db) - self._dev_rows,
+                "sync_backlog_rows": self._n - self._dev_rows,
                 **self._counters,
             }
 
@@ -369,13 +567,45 @@ class PlaceIndex:
             )
         if meta.ndim > 1:  # legacy 2-D object saves: restore row entries
             meta = [list(row) for row in meta]
-        with self._sync_lock:
-            with self._lock:
-                self._db = db.astype(np.float32)
-                self._meta = list(meta)
-                self._dev_db = None  # full reload: the next query re-syncs
-                self._dev_scale = None
-                self._dev_rows = 0
+        segs: list[np.ndarray] = []
+        _write_rows(segs, 0, db)
+        # _sync_lock first: a background chunk computed from the old rows
+        # must not install after the swap
+        with self._add_lock, self._sync_lock, self._lock:
+            self._segs, self._n = segs, len(db)
+            self._meta = list(meta)
+            self._dev_db = None  # full reload: the next query re-syncs
+            self._dev_scale = self._dev_ready = None
+            self._dev_rows = 0
+
+
+def _write_rows(segs: list, n: int, rows: np.ndarray) -> None:
+    """Write ``rows`` (cast to fp32) as rows [n, n + len(rows)) of a
+    segmented host master, appending segments to ``segs`` as needed."""
+    i = 0
+    while i < len(rows):
+        s, off = divmod(n + i, HOST_SEGMENT_ROWS)
+        if s == len(segs):
+            segs.append(np.empty((HOST_SEGMENT_ROWS, rows.shape[1]), np.float32))
+        take = min(HOST_SEGMENT_ROWS - off, len(rows) - i)
+        segs[s][off:off + take] = rows[i:i + take]
+        i += take
+
+
+def _pieces(segs: list, start: int, end: int) -> list[np.ndarray]:
+    """Rows [start, end) of a segmented host master, as views, one a segment."""
+    r = HOST_SEGMENT_ROWS
+    return [segs[s][max(start - s * r, 0):min(end - s * r, r)]
+            for s in range(start // r, -(-end // r))]
+
+
+def _rows(segs: list, start: int, end: int, dim: int) -> np.ndarray:
+    """Rows [start, end) of a segmented host master: a view within one
+    segment, else a copy."""
+    pieces = _pieces(segs, start, end)
+    if len(pieces) == 1:
+        return pieces[0]
+    return np.concatenate(pieces) if pieces else np.zeros((0, dim), np.float32)
 
 
 def _resolve_future(setter, value) -> None:

@@ -11,6 +11,10 @@ the ``keep`` newest are kept. The mining cache is rebuilt after a restore
 (derived state), and the data order is (seed, epoch)-keyed, so these files
 alone make a resume exact. Weights leave for the JAX package only through
 the flat export (``cli/export.py``).
+
+``read_run_config`` and ``restore_model`` turn a run directory
+(``config.json`` + ``ckpt/``) into its model, for every module that serves,
+exports or distils from a run.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import re
 
 import torch
 
-from epcnet_torch.train.state import TrainState
+from epcnet_torch.configs import ExperimentConfig, apply_overrides
+from epcnet_torch.train.state import TrainState, create_train_state
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -96,3 +101,23 @@ class CheckpointManager:
         """Saves are synchronous: nothing is in flight. The recall hook
         returns it as its ``finalize``, where the JAX manager's
         asynchronous saves need a wait."""
+
+
+def read_run_config(log_dir: str, config: str | None = None, overrides=()) -> ExperimentConfig:
+    """The run's config: ``config`` or ``<log_dir>/config.json`` (else the
+    defaults), with ``overrides`` on top."""
+    path = config or os.path.join(log_dir, "config.json")
+    cfg = ExperimentConfig()
+    if os.path.isfile(path):
+        with open(path) as f:
+            cfg = ExperimentConfig.from_json(f.read())
+    return apply_overrides(cfg, list(overrides)) if overrides else cfg
+
+
+def restore_model(log_dir: str, cfg: ExperimentConfig, device="cpu"):
+    """(model, step) of the latest checkpoint under ``<log_dir>/ckpt``;
+    ``FileNotFoundError`` where there is none."""
+    state = create_train_state(cfg.model, cfg.train, device)
+    state = CheckpointManager(os.path.join(log_dir, "ckpt"),
+                              cfg.train.keep_checkpoints).restore(state, require=True)
+    return state.model, state.step

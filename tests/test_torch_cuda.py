@@ -23,6 +23,7 @@ import torch
 from epcnet_torch.configs import ModelConfig, pointnetvlad_config
 from epcnet_torch.evals import get_recall, retrieval_latency_probe
 from epcnet_torch.ops import adjacency, knn, knn_phases
+from epcnet_torch.serve import PlaceIndex
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.weights import init_flat_variables
 
@@ -578,3 +579,144 @@ def test_train_step_matches_jax_file(cuda):
     want_s = {k[6:]: v for k, v in data.items() if k.startswith("stats/")}
     assert _grad_gap(flat_grads(st.model), want_g) <= PARITY_TOL["grad"]
     assert _stats_gap(flat_variables(st.model), want_s) <= PARITY_TOL["stats"]
+
+
+# ---------------------------------------------------------------------------
+# Serving at scale: blocked retrieval, its memory, background sync, HTTP
+
+
+def _unit_rows_on(dev, n, d=256, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=dev)
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("log2cap", [16, 18, 20])
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_blocked_retrieval_matches_full_sort(cuda, log2cap, quantize):
+    """The serving path's blocked top-k equals the full-sort plain version
+    (ids exactly, distances bit for bit) at capacities 2^16-2^20, with
+    duplicate rows in different blocks (ties to the lowest index) and a
+    far-padded tail."""
+    from epcnet_torch.ops import retrieval as ret
+
+    cap = 1 << log2cap
+    db = _unit_rows_on(cuda, cap, seed=log2cap)
+    dup = torch.unique(torch.tensor([7, 65536 + 7, cap // 2 + 3, cap - 4097], device=cuda) % cap)
+    db[dup] = db[5].clone()
+    db[cap - 4096:] = 1e6
+    q = torch.cat([db[:4], db[5:6], _unit_rows_on(cuda, 27, seed=1)])
+    if quantize == "int8":
+        qi, sc = ret.quantize_descriptors(db)
+        got = ret.topk_neighbors_quantized(q, qi, sc, 25)
+        want = ret.topk_neighbors_quantized_plain(q, qi, sc, 25)
+    else:
+        got = ret.topk_neighbors(q, db, 25)
+        want = ret.topk_neighbors_plain(q, db, 25)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0][4, :len(dup) + 1].tolist() == sorted([5] + dup.tolist())
+
+
+def test_int8_query_transient_bound(cuda):
+    """One padded query batch (32) against a 2^20-capacity int8 index
+    allocates less than the resident DB's 268 MB beyond what was resident."""
+    ix = PlaceIndex(None, 256, embed_batch=32, quantize="int8", device=cuda)
+    ix.add_descriptors(_unit_rows_on(cuda, (1 << 20) - 1000).cpu().numpy())
+    ix.flush()
+    assert ix.metrics()["device_rows_capacity"] == 1 << 20
+    q = _unit_rows_on(cuda, 32, seed=2).cpu().numpy()
+    ix.query_descriptors(q, k=25)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ids, _ = ix.query_descriptors(q, k=25)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < (1 << 20) * 256
+    assert ids.shape == (32, 25)
+
+
+def test_background_ingest_consistent_prefixes(cuda):
+    """Background sync on its own stream while 8 threads query: every
+    answer is the exact top-1 of a prefix no shorter than the one visible
+    when it was sent; flush() makes every row visible."""
+    import threading
+
+    d = _unit_rows_on(cuda, 300_000, seed=3).cpu().numpy()
+    ix = PlaceIndex(None, 256, embed_batch=8, sync_mode="background", device=cuda)
+    ix.add_descriptors(d[:4096])
+    ix.flush()
+    errors = []
+
+    def worker(seed):
+        r = np.random.default_rng(seed)
+        for _ in range(40):
+            j = int(r.integers(len(d)))
+            lo = ix.metrics()["device_synced_rows"]
+            ids, dist = ix.query_descriptors(d[j:j + 1], k=1)
+            hi = ix.metrics()["device_synced_rows"]
+            if (j < lo and ids[0, 0] != j) or ids[0, 0] >= hi:
+                errors.append((j, lo, hi, int(ids[0, 0])))
+
+    pool = [threading.Thread(target=worker, args=(s,)) for s in range(8)]
+    for t in pool:
+        t.start()
+    for s in range(4096, len(d), 50_000):
+        ix.add_descriptors(d[s:s + 50_000])
+    for t in pool:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in pool) and not errors, errors[:3]
+    ix.flush()
+    assert ix.metrics()["device_synced_rows"] == len(d)
+    ids, _ = ix.query_descriptors(d[-8:], k=1)
+    np.testing.assert_array_equal(ids[:, 0], np.arange(len(d) - 8, len(d)))
+
+
+def test_http_server_on_card(cuda):
+    """The CLI's server over a small model on the card: /add, concurrent
+    /query self-retrieval, /metrics, a 400 and a 404."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from epcnet_torch.cli.serve import make_server
+
+    cfg = ModelConfig(num_points=1024, knn_k=20, proxyconv_channels=(16, 16, 16, 32),
+                      lift_channels=(64, 128), feature_dim=128, vlad_clusters=16,
+                      vlad_groups=4, vlad_group_dim=16)
+    embed = build_embed_fn(cfg, cuda, variables=init_flat_variables(cfg, 0))
+    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=8, num_points=1024, device=cuda)
+    ix.warmup()
+    srv, sched = make_server(ix, port=0, k=5, max_wait_ms=10.0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def call(path, payload=None):
+        req = urllib.request.Request(base + path, None if payload is None else
+                                     json.dumps(payload).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        pts = _cloud(11, 12, 1024, None).cpu().numpy()
+        before = knn.knn_adjacency_cuda.launches
+        assert call("/add", {"points": pts.tolist(), "metadata": list(range(12))}) == \
+            (200, {"size": 12})
+        with ThreadPoolExecutor(8) as ex:
+            res = list(ex.map(lambda i: call("/query", {"points": pts[i].tolist(), "k": 3}),
+                              range(12)))
+        for i, (code, r) in enumerate(res):
+            assert code == 200 and r["ids"][0] == i and r["metadata"][0] == i
+        assert knn.knn_adjacency_cuda.launches > before
+        code, m = call("/metrics")
+        assert code == 200 and m["index"]["size"] == 12 and m["scheduler"]["errors"] == 0
+        assert call("/query", {"points": pts[0].tolist(), "k": 6})[0] == 400
+        assert call("/nowhere")[0] == 404
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        sched.stop()

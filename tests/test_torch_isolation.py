@@ -37,7 +37,7 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 51  # every submodule was imported
+    assert int(out.stdout.strip()) >= 57  # every submodule was imported
 
 
 def _imports(path):
@@ -61,7 +61,7 @@ def test_source_scan():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "epcnet_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 52  # chip_smoke.py and the package's 51 modules
+    assert len(files) >= 58  # chip_smoke.py and the package's 57 modules
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in FORBIDDEN + HOST_ONLY, (f, mod)
@@ -88,7 +88,7 @@ def test_configs_copy_in_step():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import numpy as np
 
-    from epcnet_torch.cli import distill, embed, evaluate, train
+    from epcnet_torch.cli import convert, distill, embed, evaluate, serve, train
     from epcnet_torch.evals import get_recall, retrieval_latency_probe
     from epcnet_torch.models import get_model
     from epcnet_torch.serve import PlaceIndex
@@ -102,6 +102,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     for call in (lambda: get_model(cfg), lambda: get_model(cfg, "cuda"),
                  lambda: get_model(tcfg.pointnetvlad_config()),
                  lambda: build_embed_fn(cfg), lambda: PlaceIndex(None),
+                 lambda: PlaceIndex.from_checkpoint(str(tmp_path)),
+                 lambda: serve.main(log),
+                 lambda: convert.main(["--source", str(tmp_path / "w.npz")] + log),
                  lambda: get_recall(db, db, [[0]] * 4),
                  lambda: retrieval_latency_probe(db, 4),
                  lambda: evaluate.main(["--dataset_root", str(tmp_path)] + log),

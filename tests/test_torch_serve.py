@@ -200,8 +200,8 @@ def test_ids_match_jax_place_index(jax_state, embed):
 
 
 def test_unported_modes_raise(embed):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        PlaceIndex(embed, sync_mode="background", device="cpu")
+    # background sync is ported (tests/test_torch_retrieval.py holds it)
+    assert PlaceIndex(embed, sync_mode="background", device="cpu").sync_mode == "background"
     with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         PlaceIndex(embed, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="quantize"):

@@ -1,7 +1,7 @@
-"""The port's timing and profiling helpers (``epcnet_torch/utils``) on the
-CPU: what they return on CPU tensors and a CPU profile. Their device side
-(``cuda_ms``, a profile with CUDA activity) runs on the card in
-``chip_smoke.py``."""
+"""The port's timing, profiling and debugging helpers (``epcnet_torch/utils``)
+on the CPU: what they return on CPU tensors and a CPU profile, and which
+paths the finiteness checks name. The device side (``cuda_ms``, a profile
+with CUDA activity) runs on the card in ``chip_smoke.py``."""
 
 import contextlib
 import json
@@ -9,11 +9,13 @@ import os
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 import torch
 from torch.autograd import DeviceType
 
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.train.step import build_embed_fn
+from epcnet_torch.utils.debugging import assert_all_finite, checked_step
 from epcnet_torch.utils import (
     device_sync,
     profile_region,
@@ -116,3 +118,59 @@ def test_region_ms_attributes_device_work_through_its_launch():
     got = region_ms(SimpleNamespace(events=lambda: events), "epcnet/")
     assert got == {"epcnet/knn_graph": {"count": 1, "total_ms": 0.5},
                    "epcnet/lift": {"count": 2, "total_ms": 0.3}}
+
+
+def test_assert_all_finite_names_paths():
+    tree = {"a": torch.ones(3), "b": [np.float32([1.0, np.inf]), torch.arange(3)],
+            "c": {"d": torch.tensor([0.0, float("nan")]), "e": 2.0}}
+    with pytest.raises(FloatingPointError, match=r"in batch: \[\"\['b'\]\[0\]\", "
+                       r"\"\['c'\]\['d'\]\"\]"):
+        assert_all_finite(tree, "batch")
+    assert_all_finite({"a": torch.ones(2), "i": torch.tensor([1, 2])}, "ok")  # no raise
+    many = {f"x{i}": torch.tensor([float("nan")]) for i in range(12)}
+    with pytest.raises(FloatingPointError) as e:
+        assert_all_finite(many)
+    assert str(e.value).count("x") == 10  # at most 10 paths
+
+
+def test_assert_all_finite_module_and_optimizer():
+    model = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.BatchNorm1d(4))
+    assert_all_finite(model, "model")
+    with torch.no_grad():
+        model[1].running_var[2] = float("inf")
+    with pytest.raises(FloatingPointError, match=r"\.1\.running_var"):
+        assert_all_finite(model, "model")
+    opt = torch.optim.Adam(model[0].parameters())
+    model[0](torch.ones(2, 3)).sum().backward()
+    opt.step()
+    opt.state[model[0].weight]["exp_avg_sq"][0, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match=r"\.state\[0\]\['exp_avg_sq'\]"):
+        assert_all_finite(opt, "optimizer")
+
+
+def test_checked_step_raises_on_the_first_fault():
+    model = torch.nn.Linear(3, 2)
+    state = SimpleNamespace(model=model)
+
+    def step(fault):
+        def run(st, batch):
+            loss = model(batch).sum()
+            model.zero_grad()
+            loss.backward()
+            if fault == "grad":
+                model.bias.grad[0] = float("inf")
+            if fault == "param":
+                with torch.no_grad():
+                    model.weight[1, 2] = float("nan")
+            return st, {"loss": loss.detach() * (float("nan") if fault == "loss" else 1.0),
+                        "learning_rate": torch.tensor(float("nan"))}  # not a loss: unchecked
+        return checked_step(run)
+
+    x = torch.ones(4, 3)
+    assert checked_step(lambda st, b: (st, {"loss": torch.tensor(1.0)}))(state, x)[0] is state
+    for fault, what in (("loss", r"loss: \[\"\['loss'\]"), ("grad", r"gradients: \[\"\['bias'\]"),
+                        ("param", r"model: \[\'\.weight\'")):
+        with pytest.raises(FloatingPointError, match=what):
+            step(fault)(state, x)
+        with torch.no_grad():
+            model.weight.nan_to_num_(0.0)
