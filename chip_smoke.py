@@ -90,6 +90,23 @@ EPC-Net-L student; the mimic loss must fall). "train timings" runs
 ``scripts/train_bench.run``: ms a step, peak memory and the step's spans
 for the dense step, with remat, with accumulation over 2, and at N=32768.
 
+Then the multi-device phase (``scripts/multidevice.py``), at full width:
+(a) one process over ``make_mesh(devices=[cuda:0, cuda:0])``: sharded and
+ring top-k at 10^6 rows (fp32 and int8) return the unsharded blocked ids
+exactly, the 64 serving submaps planted at rank 0, and a sharded
+``PlaceIndex`` answers them through ``QueryScheduler`` from 8 threads, p50
+and p99 beside the unsharded index's (counts zeroed: K1 embeds the
+requests); (b) a world of two ranks sharing the card over gloo (spawn, a
+FileStore): the data-parallel step of the 44-cloud batch in bf16 and fp32,
+the ring kNN and the points-sharded embed at N=131072 (bf16; fp32 at
+65536) and the points-sharded tuple step at N=32768, each held against
+the single-device path (``multidevice.TOL``), each rank's K1 and K2
+launches counted; (c) a world of one over NCCL through
+``maybe_initialize_distributed``: the data-parallel step timed against the
+plain one, and ``cli/train.py --mesh`` for two steps; and which raw
+collectives gloo runs on CUDA tensors (each must include
+``collectives.GLOO_CUDA_OPS``).
+
 Output: progress lines with each phase's seconds, then a ``{"kernels":
 [...]}`` line, timing lines, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -135,7 +152,8 @@ from epcnet_torch.models.epcnet import adjacency_route
 from epcnet_torch.models.vlad_head import compute_dtype
 from epcnet_torch.ops import _build, adjacency, knn, knn_phases, sampling
 from epcnet_torch.ops.matmul import matmul_f32acc
-from epcnet_torch.scripts import knn_trace, serve_scale, train_bench
+from epcnet_torch.parallel.collectives import GLOO_CUDA_OPS
+from epcnet_torch.scripts import knn_trace, multidevice, serve_scale, train_bench
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.mining import MiningCache
 from epcnet_torch.train.state import create_train_state
@@ -770,9 +788,9 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         mining_k1 = [0]
         real_refresh = MiningCache.refresh
 
-        def counted_refresh(self, model):
+        def counted_refresh(self, model, group=None):
             before = read_counts()["K1"]
-            real_refresh(self, model)
+            real_refresh(self, model, group)
             mining_k1[0] += read_counts()["K1"] - before
 
         MiningCache.refresh = counted_refresh
@@ -1153,6 +1171,44 @@ def serving_phases(dev, cfg: ModelConfig, flat: dict, embed, sub: np.ndarray) ->
             "sampling": samp, "counts": {"serve http": http_counts, "convert": convert_counts,
                                          "serve scale": scale_counts,
                                          "serve ingest": ingest_counts}}
+
+
+def multi_device_phases(dev, cfg: ModelConfig, flat: dict, embed, sub: np.ndarray):
+    """(a)-(c) of the module docstring; returns the results line and each
+    path's launch counts (a rank's K1 and K2 in the gloo world)."""
+    counts = {}
+    with Phase("multi-device retrieval"):
+        zero_counts()
+        ret = multidevice.retrieval(dev, embed, sub, 10**6)
+        counts["multi-device retrieval"] = read_counts()
+        assert counts["multi-device retrieval"]["K1"] >= 1, counts["multi-device retrieval"]
+        torch.cuda.empty_cache()
+    lat = ret["scheduler_8_threads"]
+    log(f"phase multi-device retrieval: 10^6 rows over [cuda:0, cuda:0], sharded and ring ids "
+        f"equal to the unsharded (fp32, int8), {ret['queries']} submaps at rank 0 through "
+        f"QueryScheduler: p50/p99 {lat['sharded']['p50_ms']:.2f}/{lat['sharded']['p99_ms']:.2f} "
+        f"ms sharded, {lat['unsharded']['p50_ms']:.2f}/{lat['unsharded']['p99_ms']:.2f} "
+        f"unsharded; launches {counts['multi-device retrieval']}")
+    with Phase("multi-device gloo"):
+        gl = multidevice.gloo_world(dev, cfg, flat)
+        torch.cuda.empty_cache()
+    for r, c in gl["counts"].items():
+        for path, kc in c.items():
+            counts[f"gloo rank {r} {path}"] = {**{name: 0 for name in COUNTERS}, **kc}
+    log(f"phase multi-device gloo: 2 ranks on one card; DP step bf16 {gl['dp_step_bf16']}, "
+        f"fp32 {gl['dp_step_fp32']}; ring kNN ids equal to K2's at N=131072; embed "
+        f"{gl['embed']}; tuple step bf16 {gl['tuple_step_bf16']}, fp32 {gl['tuple_step_fp32']}; "
+        f"K1 / K2 launches a rank {gl['counts']}")
+    with Phase("multi-device nccl"):
+        nc = multidevice.nccl_world(dev, cfg, flat)
+    log(f"phase multi-device nccl: world of one, step {nc['step_ms']} ms (collectives "
+        f"{nc['collective_ms']:.3f} ms; K1 {nc['step_counts']['K1']} a step); cli/train "
+        f"--mesh {nc['cli_train']['steps']} steps, K1 {nc['cli_train']['counts']['K1']}")
+    with Phase("gloo cuda probe"):
+        ops = multidevice.gloo_cuda_ops()
+    assert all(ops[op] == "accepted" for op in GLOO_CUDA_OPS), ops
+    log(f"phase gloo cuda probe: {ops}")
+    return {"retrieval": ret, "gloo": gl, "nccl": nc, "gloo_cuda_ops": ops}, counts
 
 
 def spill_bytes(report: str) -> dict:
@@ -1549,13 +1605,16 @@ def main() -> int:
     log(f"phase train timings: dense {bench['dense']['ms_per_step']:.2f} ms a step, gather "
         f"{bench['gather']['ms_per_step']:.2f} ms")
 
+    # -- 10d. the multi-device paths, launch counts zeroed before each ------
+    md, md_counts = multi_device_phases(dev, cfg, flat, embed, sub)
+
     # -- 11. timings, at the shapes the serving paths give each kernel -----
     with Phase("timings"):
         kernels = []
 
         path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
                        **served["counts"], "evaluate": eval_counts, "knn trace": trace_counts,
-                       **train_counts}
+                       **train_counts, **md_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
                   shape, counter, **extra):
@@ -1746,6 +1805,7 @@ def main() -> int:
     log(json.dumps({"bf16_gemm_check": {**gaps, "tolerance": BF16_TOL}}))
     log(json.dumps({"train": trained}))
     log(json.dumps({"train_bench": bench}))
+    log(json.dumps({"multi_device": md}, default=str))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

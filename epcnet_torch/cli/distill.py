@@ -7,12 +7,13 @@ same Trainer as ``cli/train.py``: resume, preemption safety, mining and
 JSONL metrics.
 
   python -m epcnet_torch.cli.distill --dataset_root D --teacher_log_dir log \\
-      [--alpha 1.0] [--log_dir log_student] [--restore] [--synthetic] [--device cpu]
+      [--alpha 1.0] [--log_dir log_student] [--restore] [--mesh] [--synthetic]
+      [--device cpu]
 
 The teacher's weights come from its export pair ``<teacher_log_dir>/export``
 (written by either package's ``cli/export.py``) when there is one, else from
 the latest port checkpoint under ``<teacher_log_dir>/ckpt`` (required).
-``--mesh`` is ROADMAP item 6.
+``--mesh``: data-parallel over a process group, as ``cli/train.py``.
 """
 
 from __future__ import annotations
@@ -27,15 +28,14 @@ from epcnet_torch.data.tuples import construct_query_dict, scan_runs
 from epcnet_torch.device import resolve_device
 from epcnet_torch.evals.hooks import make_recall_eval_hook
 from epcnet_torch.models import get_model
-from epcnet_torch.parallel import PreemptionGuard
+from epcnet_torch.parallel import PreemptionGuard, ProcessMesh, maybe_initialize_distributed
+from epcnet_torch.parallel.collectives import barrier
+from epcnet_torch.parallel.mesh import is_primary
 from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.train.step import build_distill_step
 from epcnet_torch.train.trainer import Trainer
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.weights import load_export, load_flat_variables
-
-_MESH = "--mesh (data-parallel training) is not ported yet (ROADMAP item 6, Multi-device)"
-
 
 def load_teacher(teacher_log_dir: str, device):
     """(teacher experiment config, teacher model on ``device``): from the
@@ -69,8 +69,7 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH)
+    maybe_initialize_distributed(device=args.device)  # before any CUDA work
     device = resolve_device(args.device)
 
     teacher_exp, teacher = load_teacher(args.teacher_log_dir, device)
@@ -86,19 +85,24 @@ def main(argv=None) -> Trainer:
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
 
-    if args.synthetic and not os.path.isdir(
+    mesh = ProcessMesh(cfg.mesh) if args.mesh else None
+    if args.synthetic and is_primary() and not os.path.isdir(
             os.path.join(cfg.data.dataset_root, cfg.data.runs_subdir)):
         generate_synthetic_dataset(cfg.data.dataset_root, num_points=cfg.data.num_points,
                                    runs_subdir=cfg.data.runs_subdir)
+    if mesh is not None:
+        barrier(mesh.world)
     df = scan_runs(cfg.data.dataset_root, cfg.data.runs_subdir)
     tuples = construct_query_dict(df, cfg.data.positive_radius_m, cfg.data.negative_radius_m,
                                   exclude_test_regions=not args.synthetic)
-    distill_step = build_distill_step(cfg.model, tcfg, cfg.train, args.alpha)
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    distill_step = build_distill_step(cfg.model, tcfg, cfg.train, args.alpha,
+                                      None if mesh is None else mesh.group("data"))
+    if is_primary():
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
-    trainer = Trainer(cfg, tuples, metrics_name="distill", device=device,
+    trainer = Trainer(cfg, tuples, mesh=mesh, metrics_name="distill", device=device,
                       step_fn=lambda state, batch: distill_step(state, teacher, batch))
     if args.restore:
         log_string(f"student restored at step {trainer.maybe_restore()}")

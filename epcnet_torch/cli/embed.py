@@ -2,13 +2,18 @@
 cloud files in, global descriptors out.
 
   python -m epcnet_torch.cli.embed --log_dir log --output descs.npy \\
-      cloud0.bin cloud1.npy ... [--batch_size 32] [--dataset_root R] [--device cpu]
+      cloud0.bin cloud1.npy ... [--batch_size 32] [--dataset_root R]
+      [--points_sharded [--pad_multiple 512]] [--device cpu]
 
 Inputs (by extension): ``.bin``, raw float64 xyz with N taken from the file
 size; ``.npy``, a float array [N, 3]. Every cloud must have exactly
 ``model.num_points`` points; the batched forward pads the last batch.
-``--points_sharded`` (a cloud's points over several cards, with its
-``--pad_multiple``) is ROADMAP item 6. Weights and config come from the
+``--points_sharded`` embeds clouds of any size one at a time, each cloud's
+point axis sharded over the ranks of a process group
+(``models/points_sharded.py``; one process a rank, set up from the
+``EPCNET_*`` variables; without them a world of one), N padded to a
+multiple of ``--pad_multiple`` x the ranks; rank 0 writes the output.
+Weights and config come from the
 ``<log_dir>/export`` pair, as in ``cli/evaluate.py``; the model runs on
 the card unless ``--device cpu``.
 
@@ -23,13 +28,16 @@ import json
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from epcnet_torch.cli.evaluate import load_run
+from epcnet_torch.configs import MeshConfig
 from epcnet_torch.data.pointclouds import load_pc_file
+from epcnet_torch.models.points_sharded import embed_points_sharded
+from epcnet_torch.parallel import ProcessMesh, maybe_initialize_distributed
+from epcnet_torch.parallel.mesh import is_primary
 from epcnet_torch.utils.logging import log_string
-
-_POINTS_SHARDED = ("--points_sharded (a cloud's points over several cards) is not "
-                   "ported yet (ROADMAP item 6, Multi-device)")
+from epcnet_torch.weights import flat_variables
 
 
 def load_cloud(path: str, dataset_root: str = "") -> np.ndarray:
@@ -55,17 +63,29 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument(
         "--points_sharded", action="store_true",
-        help="shard each cloud's point axis over all devices "
+        help="shard each cloud's point axis over the ranks of the process group "
              "(no num_points cap; sizes may vary)",
     )
+    ap.add_argument("--pad_multiple", type=int, default=512,
+                    help="points-sharded: pad each cloud to a multiple of this (per rank)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.points_sharded:
-        raise NotImplementedError(_POINTS_SHARDED)
+        maybe_initialize_distributed(device=args.device)  # before any CUDA work
 
     cfg, embed = load_run(args.log_dir, args.config, args.overrides, args.device)
     clouds = [load_cloud(p, args.dataset_root) for p in args.inputs]
-    out = np.stack(_embed_batched(embed, clouds, cfg, args.batch_size), axis=0)
+    if args.points_sharded:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = ProcessMesh(MeshConfig(data_axis=1, db_axis=world))
+        flat = flat_variables(embed.model)
+        descs = [embed_points_sharded(flat, c, cfg.model, mesh, npad_multiple=args.pad_multiple,
+                                      device=embed.device).cpu().numpy() for c in clouds]
+    else:
+        descs = _embed_batched(embed, clouds, cfg, args.batch_size)
+    out = np.stack(descs, axis=0)
+    if not is_primary():
+        return out
     np.save(args.output, out)
     base = args.output[:-4] if args.output.endswith(".npy") else args.output
     with open(base + ".json", "w") as f:

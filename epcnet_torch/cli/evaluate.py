@@ -4,14 +4,16 @@ region's database and query runs and writes the recall table to
 
   python -m epcnet_torch.cli.evaluate --dataset_root D --log_dir log
       [--regions oxford university ...] [--latency_probe] [--quantize int8]
-      [--database_pickle db.pickle --query_pickle q.pickle] [--device cpu]
+      [--database_pickle db.pickle --query_pickle q.pickle] [--mesh] [--device cpu]
 
 Weights and config come from the ``<log_dir>/export`` pair
 (``python -m epcnet_tpu.cli.export`` or ``weights.save_export``), not from
 an Orbax checkpoint; ``--config`` replaces the pair's config, and
 ``--dataset_root`` and ``--set`` apply on top. The model runs on the card
-unless ``--device cpu`` is given. ``--mesh`` is ROADMAP item 6; the JAX
-CLI's ``--compilation_cache_dir`` has no counterpart (eager PyTorch compiles
+unless ``--device cpu`` is given. ``--mesh`` shards retrieval over the
+visible devices (one slice onto the "db" axis unless the config's mesh
+sets one; ``parallel.retrieval_db_axis``). The JAX CLI's
+``--compilation_cache_dir`` has no counterpart (eager PyTorch compiles
 nothing per shape; the kernels' builds are cached under
 ``epcnet_torch/csrc/build``).
 """
@@ -19,6 +21,7 @@ nothing per shape; the kernels' builds are cached under
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -33,12 +36,15 @@ from epcnet_torch.data.tuples import (
 )
 from epcnet_torch.device import resolve_device
 from epcnet_torch.evals import embed_entries, evaluate_dataset, retrieval_latency_probe
+from epcnet_torch.parallel import (
+    local_devices,
+    make_multislice_mesh,
+    maybe_initialize_distributed,
+    retrieval_db_axis,
+)
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.weights import load_export
-
-_MESH = "--mesh (sharded retrieval) is not ported yet (ROADMAP item 6, Multi-device)"
-
 
 def load_run(log_dir: str, config: str | None, overrides, device: str | None):
     """(config, embed) of the export pair in ``log_dir``, on ``device``:
@@ -93,12 +99,21 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if bool(args.database_pickle) != bool(args.query_pickle):
         ap.error("--database_pickle and --query_pickle must be given together")
-    if args.mesh:
-        raise NotImplementedError(_MESH)
+    maybe_initialize_distributed(device=args.device)
 
     overrides = ([f"data.dataset_root={args.dataset_root}"] if args.dataset_root else []
                  ) + args.overrides
     cfg, embed = load_run(args.log_dir, args.config, overrides, args.device)
+    mesh = None
+    if args.mesh:
+        # retrieval only: one full slice onto "db" (a db_axis=1 mesh would
+        # never take the sharded path; every device would cross slices)
+        devices = local_devices(embed.device)
+        mcfg = cfg.mesh
+        if mcfg.db_axis <= 1:
+            mcfg = dataclasses.replace(mcfg, data_axis=-1, db_axis=retrieval_db_axis(devices))
+        mesh = make_multislice_mesh(mcfg, devices)
+        log_string(f"retrieval mesh {mesh}")
 
     regions = {}
     if args.database_pickle:
@@ -115,7 +130,8 @@ def main(argv=None) -> dict:
                 only_test_regions=any_in_test_regions(table),
             )
 
-    results = evaluate_dataset(embed, regions, cfg.data, cfg.eval, quantize=args.quantize)
+    results = evaluate_dataset(embed, regions, cfg.data, cfg.eval, mesh=mesh,
+                               quantize=args.quantize)
     out_path = args.output or os.path.join(args.log_dir, "results.txt")
     write_results(results, out_path)
     avg = results["average"]
@@ -129,7 +145,7 @@ def main(argv=None) -> dict:
         name = next(iter(regions))
         db_desc = embed_entries(embed, regions[name][0][0], cfg.data, cfg.eval.batch_size)
         lat = retrieval_latency_probe(db_desc, cfg.eval.latency_probe_queries,
-                                      cfg.eval.top_k, device=embed.device)
+                                      cfg.eval.top_k, mesh=mesh, device=embed.device)
         log_string(
             f"retrieval latency p50={lat['p50_ms']:.3f}ms "
             f"p99={lat['p99_ms']:.3f}ms "

@@ -5,14 +5,16 @@
       [--port 8476] [--k 25] [--max_wait_ms 2] [--embed_batch 32]
       [--db saved_index.npz] [--save_on_exit saved_index.npz]
       [--warmup_points 0|N] [--quantize none|int8]
-      [--sync_mode blocking|background] [--sync_chunk_rows R] [--device cpu]
+      [--sync_mode blocking|background] [--sync_chunk_rows R]
+      [--mesh [--db_axis D]] [--device cpu]
 
 Weights: the latest port checkpoint under ``<log_dir>/ckpt``
 (``PlaceIndex.from_checkpoint``: a port training run, or ``cli/convert.py``'s
 output); where there is none, the ``<log_dir>/export`` pair (how weights the
 JAX package trained reach the port, as ``cli/evaluate.py`` reads them). It
 raises when the directory holds neither. The model runs on the card unless
-``--device cpu`` is given. ``--mesh`` (sharded retrieval) is ROADMAP item 6;
+``--device cpu`` is given. ``--mesh`` shards the device DB over the visible
+devices (``--db_axis`` of them, default one slice);
 the JAX CLI's ``--compilation_cache_dir`` has no counterpart (eager PyTorch
 compiles nothing per shape; the kernels' builds are cached under
 ``epcnet_torch/csrc/build``).
@@ -52,12 +54,18 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from epcnet_torch.configs import MeshConfig
 from epcnet_torch.device import resolve_device
+from epcnet_torch.parallel import (
+    local_devices,
+    make_multislice_mesh,
+    maybe_initialize_distributed,
+    retrieval_db_axis,
+)
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.checkpoint import CheckpointManager
 from epcnet_torch.utils.logging import log_string
 
-_MESH = "--mesh (sharded retrieval) is not ported yet (ROADMAP item 6, Multi-device)"
 
 
 def _json_handler(index: PlaceIndex, sched: QueryScheduler, default_k: int):
@@ -178,7 +186,9 @@ def main(argv=None):
     ap.add_argument("--db", default=None, help="preload a saved index .npz")
     ap.add_argument("--save_on_exit", default=None, help="persist DB on shutdown")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the retrieval DB over devices (ROADMAP item 6)")
+                    help="shard the retrieval DB over devices")
+    ap.add_argument("--db_axis", type=int, default=0,
+                    help="--mesh: devices the DB shards over (0 = one slice's worth)")
     ap.add_argument("--warmup_points", type=int, default=-1,
                     help="run one embed+query on zeros at this many points per "
                     "submap BEFORE binding the port (on the card it also builds "
@@ -194,12 +204,19 @@ def main(argv=None):
                     help="rows per device-sync chunk (default 8*block_rows)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH)
+    maybe_initialize_distributed(device=args.device)
     device = resolve_device(args.device)  # before any work: no card, no server
 
-    index = load_index(args.log_dir, embed_batch=args.embed_batch, quantize=args.quantize,
-                       max_k=args.k, sync_mode=args.sync_mode,
+    mesh = None
+    if args.mesh:
+        # serving shards the DESCRIPTOR DB: one slice onto "db" by default
+        # (a db_axis=1 mesh would never take the sharded path)
+        devices = local_devices(device)
+        db_axis = args.db_axis or retrieval_db_axis(devices)
+        mesh = make_multislice_mesh(MeshConfig(data_axis=-1, db_axis=db_axis), devices)
+        log_string(f"retrieval mesh {mesh}")
+    index = load_index(args.log_dir, mesh=mesh, embed_batch=args.embed_batch,
+                       quantize=args.quantize, max_k=args.k, sync_mode=args.sync_mode,
                        sync_chunk_rows=args.sync_chunk_rows, device=device)
     if args.db:
         index.load_db(args.db)

@@ -3,15 +3,19 @@
   python -m epcnet_torch.cli.train --dataset_root D [--config cfg.json]
       [--set train.learning_rate=1e-4 --set model.knn_k=20 ...]
       [--tuples_pickle P] [--log_dir log] [--restore] [--synthetic]
-      [--profile_dir dir] [--eval_every_epochs N] [--device cpu]
+      [--profile_dir dir] [--eval_every_epochs N] [--mesh] [--device cpu]
 
 Writes ``<log_dir>/config.json``, ``<log_dir>/train.jsonl`` and the port's
 checkpoints under ``<log_dir>/ckpt`` (``train/checkpoint.py``);
 ``python -m epcnet_torch.cli.export`` turns the latest into the export pair
 the port's (and the JAX package's) evaluation reads. Runs on the card
-unless ``--device cpu`` is given. ``--mesh`` is ROADMAP item 6; the JAX
-CLI's ``--compilation_cache_dir`` has no counterpart (eager PyTorch
-compiles nothing per shape).
+unless ``--device cpu`` is given. ``--mesh`` trains data-parallel over the
+ranks of a process group (one process a rank, set up from the
+``EPCNET_*`` variables by ``parallel.maybe_initialize_distributed``: NCCL
+on the cards, gloo with ``--device cpu``; without them a world of one),
+BatchNorm over the global batch; rank 0 logs and writes. The JAX CLI's
+``--compilation_cache_dir`` has no counterpart (eager PyTorch compiles
+nothing per shape).
 """
 
 from __future__ import annotations
@@ -26,13 +30,12 @@ from epcnet_torch.data.synthetic import generate_synthetic_dataset
 from epcnet_torch.data.tuples import TrainingTuples, construct_query_dict, load_pickle, scan_runs
 from epcnet_torch.device import resolve_device
 from epcnet_torch.evals.hooks import make_recall_eval_hook
-from epcnet_torch.parallel import PreemptionGuard
+from epcnet_torch.parallel import PreemptionGuard, ProcessMesh, maybe_initialize_distributed
+from epcnet_torch.parallel.collectives import barrier
+from epcnet_torch.parallel.mesh import is_primary
 from epcnet_torch.train.trainer import Trainer
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.utils.profiling import start_trace
-
-_MESH = "--mesh (data-parallel training) is not ported yet (ROADMAP item 6, Multi-device)"
-
 
 def load_config(path: str | None, dataset_root: str | None, log_dir: str | None,
                 overrides) -> ExperimentConfig:
@@ -81,21 +84,26 @@ def main(argv=None) -> Trainer:
                     "keep the BEST checkpoint in <log_dir>/ckpt_best; 0 = off")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH)
+    # the process group first, before any CUDA work (a no-op when nothing is set)
+    maybe_initialize_distributed(device=args.device)
     device = resolve_device(args.device)  # before any work: no card, no run
 
     cfg = load_config(args.config, args.dataset_root, args.log_dir, args.overrides)
-    if args.synthetic:
+    mesh = ProcessMesh(cfg.mesh) if args.mesh else None
+    if args.synthetic and is_primary():
         generate_synthetic_dataset(cfg.data.dataset_root, num_points=cfg.data.num_points,
                                    runs_subdir=cfg.data.runs_subdir)
+    if mesh is not None:
+        barrier(mesh.world)  # rank 0's dataset in place
     tuples, df = training_tuples(cfg, args.tuples_pickle, args.synthetic)
-    log_string(f"{len(tuples.queries)} training tuples; device {device}")
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    log_string(f"{len(tuples.queries)} training tuples; device {device}"
+               + (f"; mesh {mesh.shape}" if mesh is not None else ""))
+    if is_primary():
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        with open(os.path.join(cfg.log_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
-    trainer = Trainer(cfg, tuples, device=device)
+    trainer = Trainer(cfg, tuples, mesh=mesh, device=device)
     if args.restore:
         log_string(f"restored at step {trainer.maybe_restore()}")
     on_epoch_end, finalize_eval = make_recall_eval_hook(

@@ -19,6 +19,7 @@ from epcnet_torch.data.tuples import (
     scan_runs,
 )
 from epcnet_torch.evals.recall import evaluate_region
+from epcnet_torch.parallel.mesh import is_primary
 from epcnet_torch.train.checkpoint import CheckpointManager
 from epcnet_torch.utils.logging import log_string
 
@@ -33,7 +34,9 @@ def make_recall_eval_hook(cfg, every_epochs: int, df=None, resumed=False):
     run (``resumed=True``, i.e. --restore) cannot overwrite ``ckpt_best``
     with a worse checkpoint; a fresh run in a reused log_dir retires the
     previous run's best, score and checkpoint both. ``df``: the scanned runs
-    table, to skip a second walk of the dataset."""
+    table, to skip a second walk of the dataset. In a multi-process run
+    every rank evaluates (the same weights, the same score) and rank 0
+    alone writes the files."""
     if every_epochs <= 0:
         return None, (lambda: None)
     if df is None:
@@ -48,7 +51,7 @@ def make_recall_eval_hook(cfg, every_epochs: int, df=None, resumed=False):
             with open(best_path) as f:
                 best["recall"] = float(json.load(f)["recall_at_1"])
             log_string(f"best-recall retention resumes at {100 * best['recall']:.2f}%")
-    else:
+    elif is_primary():
         if os.path.isfile(best_path):
             os.remove(best_path)
         shutil.rmtree(best_dir, ignore_errors=True)
@@ -63,9 +66,10 @@ def make_recall_eval_hook(cfg, every_epochs: int, df=None, resumed=False):
         log_string(f"epoch {epoch}: eval recall@1={100 * r1:.2f}%")
         if r1 > best["recall"]:
             best["recall"] = r1
-            best_mgr.save(tr.state)
-            with open(best_path, "w") as f:
-                json.dump({"recall_at_1": r1, "step": tr.state.step}, f)
+            tr.save_checkpoint(best_mgr)
+            if tr.primary:
+                with open(best_path, "w") as f:
+                    json.dump({"recall_at_1": r1, "step": tr.state.step}, f)
             log_string(f"new best recall@1 -> {cfg.log_dir}/ckpt_best")
 
     return on_epoch_end, best_mgr.wait

@@ -1,5 +1,4 @@
-"""Recall@N evaluation harness (twin of ``epcnet_tpu/evals/recall.py``,
-single device).
+"""Recall@N evaluation harness (twin of ``epcnet_tpu/evals/recall.py``).
 
 For every (database run, query run) pair of each region: embed all
 submaps, find each query's nearest database descriptors, and score
@@ -12,8 +11,9 @@ averaged over the pairs, then over the regions. Retrieval is the exact
 top-k of ``ops/retrieval.py`` (ties to the lowest index), in fp32 or
 against the int8 database that serving keeps. Descriptors come from the
 port's ``embed`` (``train.step.build_embed_fn``, which carries its weights
-and device); retrieval runs on that device. A ``mesh`` (sharded retrieval)
-is ROADMAP item 6.
+and device); retrieval runs on that device, or, with a ``mesh`` (a
+``parallel.Mesh``) whose "db" axis is above 1, sharded over its devices
+(``sharded_topk_neighbors``), as evaluation and serving run it in JAX.
 """
 
 from __future__ import annotations
@@ -28,17 +28,16 @@ from epcnet_torch.data.native_loader import load_pc_files_native
 from epcnet_torch.device import resolve_device
 from epcnet_torch.ops.retrieval import (
     quantize_descriptors,
+    sharded_topk_neighbors,
     topk_neighbors,
     topk_neighbors_quantized,
 )
 from epcnet_torch.utils.timing import cuda_ms
 
-_MESH = "a mesh (sharded retrieval) is not ported yet (ROADMAP item 6, Multi-device)"
 
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+def _sharded(mesh) -> bool:
+    """A mesh whose "db" axis shards the database."""
+    return mesh is not None and mesh.shape.get("db", 1) > 1
 
 
 def embed_entries(embed, entries: dict, data_cfg: DataConfig,
@@ -76,10 +75,9 @@ def get_recall(
 
     gt[i] = the ground-truth database indices of query i; a query with none
     is skipped. ``quantize="int8"`` retrieves against the int8 database as
-    serving does."""
+    serving does; ``mesh`` with a "db" axis above 1 shards it."""
     if quantize not in ("none", "int8"):
         raise ValueError(f"quantize={quantize!r} not in {{'none', 'int8'}}")
-    _no_mesh(mesh)
     dev = resolve_device(device)
     one_percent_k = max(int(np.ceil(len(db_desc) / 100.0)), 1)
     k = min(max(top_k, one_percent_k), len(db_desc))
@@ -87,7 +85,11 @@ def get_recall(
     db = torch.as_tensor(np.asarray(db_desc, np.float32), device=dev)
     with torch.inference_mode():
         if quantize == "int8":
-            idx, _ = topk_neighbors_quantized(q, *quantize_descriptors(db), k)
+            db_q, db_scale = quantize_descriptors(db)
+            idx, _ = (sharded_topk_neighbors(q, db_q, k, mesh, db_scale=db_scale)
+                      if _sharded(mesh) else topk_neighbors_quantized(q, db_q, db_scale, k))
+        elif _sharded(mesh):
+            idx, _ = sharded_topk_neighbors(q, db, k, mesh)
         else:
             idx, _ = topk_neighbors(q, db, k)
     idx = idx.cpu().numpy()
@@ -125,7 +127,6 @@ def evaluate_region(
     the averaged metrics; ``evaluated_pairs=0`` where no pair had a query
     to score."""
     eval_cfg = eval_cfg or EvalConfig()
-    _no_mesh(mesh)
     # an empty run is skipped on both sides: a pair with nothing in it must
     # not score as zero recall
     db_descs = [embed_entries(embed, s, data_cfg, eval_cfg.batch_size) if len(s) else None
@@ -144,7 +145,7 @@ def evaluate_region(
                 continue
             gt = [qset[i].get(di, []) for i in range(len(qset))]
             r, p1, n_eval = get_recall(db_descs[di], q_descs[qi], gt, eval_cfg.top_k,
-                                       quantize=quantize, device=embed.device)
+                                       mesh=mesh, quantize=quantize, device=embed.device)
             if n_eval:
                 recalls.append(r)
                 one_percents.append(p1)
@@ -164,11 +165,11 @@ def evaluate_dataset(embed, regions: dict, data_cfg: DataConfig,
     """regions: {name: (database_sets, query_sets)}. Each region's metrics,
     and under ``"average"`` their mean over the regions that scored a pair
     (the reference's results.txt table)."""
-    _no_mesh(mesh)
     out = {}
     per_region = []
     for name, (db_sets, q_sets) in regions.items():
-        m = evaluate_region(embed, db_sets, q_sets, data_cfg, eval_cfg, quantize=quantize)
+        m = evaluate_region(embed, db_sets, q_sets, data_cfg, eval_cfg, mesh=mesh,
+                            quantize=quantize)
         out[name] = m
         # a region that scored no pair must not average in as zeros
         if m.get("evaluated_pairs", 1) > 0:
@@ -201,8 +202,9 @@ def retrieval_latency_probe(
       taken apart; on the card each chain is one CUDA graph, replayed and
       timed by CUDA events, so no host launch sits between its kernels. On
       the CPU the chains run eagerly on the host clock (no device number).
+
+    With ``mesh`` ("db" above 1) every query takes the sharded retrieval.
     """
-    _no_mesh(mesh)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     top_k = min(top_k, len(db_desc))  # a tiny DB: k cannot exceed the rows
@@ -212,6 +214,8 @@ def retrieval_latency_probe(
     db = torch.as_tensor(np.asarray(db_desc, np.float32), device=dev)
 
     def retrieve(q):
+        if _sharded(mesh):
+            return sharded_topk_neighbors(q, db, top_k, mesh)
         return topk_neighbors(q, db, top_k)
 
     lat = []

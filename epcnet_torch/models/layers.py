@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from epcnet_torch.ops.adjacency import neighbor_mean
+from epcnet_torch.parallel.collectives import all_reduce_sum, group_size
 from epcnet_torch.utils.profiling import profile_region
 
 
@@ -52,11 +53,20 @@ class DynamicBatchNorm(nn.Module):
     variance (``jnp.var``: the mean of the squared deviations), through
     which the gradient flows, and records ``(mean, var, momentum)`` for
     ``commit_batch_stats``. Hand-written, not ``nn.BatchNorm1d``: the
-    reference's running update and biased variance differ from torch's."""
+    reference's running update and biased variance differ from torch's.
 
-    def __init__(self, channels: int, epsilon: float = 1e-3):
+    ``group``: a process group whose ranks each hold a part of the batch
+    (data-parallel training: a block of the tuples; the points-sharded
+    EPC-Net: a block of the points). Train-mode statistics then span the
+    whole batch, two passes as the JAX layer's: the mean from an
+    ``all_reduce_sum`` of the [C] sums, then the variance from one of the
+    centred squares; both are differentiable, and identical on every rank,
+    so the running update stays identical too."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-3, group=None):
         super().__init__()
         self.epsilon = epsilon
+        self.group = group
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -64,8 +74,14 @@ class DynamicBatchNorm(nn.Module):
         self.pending = None  # (batch mean, batch var, momentum) of a train forward
 
     def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
-        xf = x.float()
-        if train:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp32 (fp64 stays)
+        if train and self.group is not None:
+            red = tuple(range(x.dim() - 1))
+            total = x.numel() // x.shape[-1] * group_size(self.group)
+            mean = all_reduce_sum(xf.sum(dim=red), self.group) / total
+            var = all_reduce_sum(((xf - mean) ** 2).sum(dim=red), self.group) / total
+            self.pending = (mean.detach(), var.detach(), momentum)
+        elif train:
             red = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=red)
             var = ((xf - mean) ** 2).mean(dim=red)
@@ -97,19 +113,29 @@ def commit_batch_stats(model: nn.Module) -> int:
     return n
 
 
+def set_bn_group(model: nn.Module, group) -> None:
+    """Give every ``DynamicBatchNorm`` of ``model`` the process group its
+    train-mode statistics span (None: the local batch). Data-parallel
+    training sets the "data" group, so that BN sees the global batch as
+    GSPMD makes it in the JAX step."""
+    for mod in model.modules():
+        if isinstance(mod, DynamicBatchNorm):
+            mod.group = group
+
+
 class SharedMLP(nn.Module):
     """Per-point MLP stack: Dense -> BN -> ReLU per width (``dense_{i}``,
     ``bn_{i}``; the last BN/ReLU only with ``activate_final``)."""
 
     def __init__(self, in_features: int, widths: Sequence[int],
-                 dtype=torch.bfloat16, activate_final: bool = True):
+                 dtype=torch.bfloat16, activate_final: bool = True, bn_group=None):
         super().__init__()
         self.widths = tuple(widths)
         self.activate_final = activate_final
         for i, w in enumerate(self.widths):
             self.add_module(f"dense_{i}", Dense(in_features, w, dtype))
             if i < len(self.widths) - 1 or activate_final:
-                self.add_module(f"bn_{i}", DynamicBatchNorm(w))
+                self.add_module(f"bn_{i}", DynamicBatchNorm(w, group=bn_group))
             in_features = w
 
     def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
@@ -127,12 +153,12 @@ class ProxyConv(nn.Module):
     concatenation in that order."""
 
     def __init__(self, in_channels: int, out_channels: int, knn_k: int = 20,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, bn_group=None):
         super().__init__()
         self.knn_k = knn_k
         self.dtype = dtype
         self.dense = Dense(2 * in_channels, out_channels, dtype)
-        self.bn = DynamicBatchNorm(out_channels)
+        self.bn = DynamicBatchNorm(out_channels, group=bn_group)
 
     def forward(self, features: torch.Tensor, adjacency: torch.Tensor | None,
                 proxy: torch.Tensor | None = None, train: bool = False, momentum=0.9):

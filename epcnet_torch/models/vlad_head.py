@@ -18,14 +18,21 @@ from epcnet_torch.ops.vlad import vlad_aggregate
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     """The backbone dtype: bf16 for ``compute_dtype="bfloat16"``, else fp32
-    (the JAX package's mapping)."""
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    (the JAX package's mapping). ``"float64"``, the port's only, runs every
+    stage in fp64 (the parameters converted with ``model.double()``): a
+    reference that measures fp32's rounding, not a mode to train in."""
+    return {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(cfg.compute_dtype,
+                                                                      torch.float32)
 
 
 class GVLADHead(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """``group``: the process group the point axis is sharded over (the
+    points-sharded EPC-Net); the VLAD sums are completed over it."""
+
+    def __init__(self, cfg: ModelConfig, group=None):
         super().__init__()
         self.cfg = cfg
+        self.group = group
         c, d, g = cfg.vlad_clusters, cfg.feature_dim, cfg.vlad_groups
         if (c * d) % g:
             raise ValueError(f"C*D={c * d} not divisible by groups={g}")
@@ -38,10 +45,11 @@ class GVLADHead(nn.Module):
         self.group_b = nn.Parameter(torch.zeros(g, cfg.vlad_group_dim))
         # G=1 with group_dim=output_dim: the grouped FC IS the output FC
         self.skip_out_fc = g == 1 and cfg.vlad_group_dim == cfg.output_dim
+        wide = torch.promote_types(compute_dtype(cfg), torch.float32)  # fp32, or fp64
         if not self.skip_out_fc:
-            self.out_fc = Dense(g * cfg.vlad_group_dim, cfg.output_dim, torch.float32)
+            self.out_fc = Dense(g * cfg.vlad_group_dim, cfg.output_dim, wide)
         if cfg.gating:
-            self.gate = Dense(cfg.output_dim, cfg.output_dim, torch.float32)
+            self.gate = Dense(cfg.output_dim, cfg.output_dim, wide)
 
     def forward(self, features: torch.Tensor, mask: torch.Tensor | None = None,
                 train: bool = False, momentum=0.9) -> torch.Tensor:
@@ -54,7 +62,8 @@ class GVLADHead(nn.Module):
                              f"{cfg.feature_dim}")
         logits = self.assign(features.to(compute_dtype(cfg)))
         v = vlad_aggregate(features, logits, self.centroids,
-                           precision=cfg.vlad_precision, mask=mask)  # [B, C*D]
+                           precision=cfg.vlad_precision, mask=mask,
+                           group=self.group)  # [B, C*D]
         b, g = v.shape[0], cfg.vlad_groups
         h = torch.einsum("bgi,gio->bgo", v.reshape(b, g, self.group_in),
                          self.group_w) + self.group_b

@@ -165,4 +165,5 @@ def gather_neighbor_mean(features: torch.Tensor, idx: torch.Tensor) -> torch.Ten
     f = features.reshape(-1, n, c)
     flat = idx.reshape(f.shape[0], -1, 1).long()  # torch.gather takes int64
     nbr = torch.gather(f, 1, flat.expand(-1, -1, c)).reshape(*lead, idx.shape[-2], k, c)
-    return (nbr.float().sum(-2) * (1.0 / k)).to(features.dtype)
+    wide = torch.promote_types(features.dtype, torch.float32)  # fp32 (fp64 stays)
+    return (nbr.to(wide).sum(-2) * (1.0 / k)).to(features.dtype)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from epcnet_torch.ops.matmul import matmul_f32acc
+from epcnet_torch.parallel.collectives import all_reduce_sum
 
 # fp32 products must stay fp32 on the card: TF32 keeps ~10 mantissa bits and
 # would perturb descriptors by ~1e-3 (the parity contract is fp32-exact)
@@ -38,6 +39,7 @@ def vlad_aggregate(
     eps: float = 1e-12,
     precision: str = "highest",
     mask: torch.Tensor | None = None,
+    group=None,
 ) -> torch.Tensor:
     """VLAD aggregation.
 
@@ -50,6 +52,10 @@ def vlad_aggregate(
         TPU's single-pass bf16 MXU mode (~1e-3 relative drift, opt-in).
       mask: optional [..., N] point-validity mask (1 real, 0 pad); pad
         points' assignment mass is zeroed.
+      group: the process group the POINT axis is sharded over (the
+        points-sharded EPC-Net): the residual sums and the assignment mass
+        are partial on each rank, and one ``all_reduce_sum`` each completes
+        them before the normalisation tail.
 
     Returns:
       [..., C*D] L2-normalised VLAD vector (fp32).
@@ -59,14 +65,16 @@ def vlad_aggregate(
     if features.is_cuda and (torch.backends.cuda.matmul.allow_tf32
                              or torch.backends.cudnn.allow_tf32):
         raise RuntimeError("TF32 was turned back on; VLAD must run in fp32")
-    f = features.float()
-    a = torch.softmax(logits.float(), dim=-1)  # [..., N, C]
+    wide = torch.promote_types(features.dtype, torch.float32)  # fp32 (fp64 stays)
+    f = features.to(wide)
+    a = torch.softmax(logits.to(wide), dim=-1)  # [..., N, C]
     if mask is not None:
-        a = a * mask.float()[..., None]
+        a = a * mask.to(wide)[..., None]
     at = a.transpose(-1, -2)
     if precision == "highest":
         s = torch.matmul(at, f)  # [..., C, D]
     else:
         s = matmul_f32acc(at.to(torch.bfloat16), f.to(torch.bfloat16))
     asum = a.sum(-2)  # [..., C]
-    return _finish(s, asum, centroids.float(), eps)
+    s, asum = all_reduce_sum(s, group), all_reduce_sum(asum, group)
+    return _finish(s, asum, centroids.to(wide), eps)

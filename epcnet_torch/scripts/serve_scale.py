@@ -73,7 +73,7 @@ from epcnet_torch.configs import ModelConfig
 from epcnet_torch.device import resolve_device
 from epcnet_torch.ops.retrieval import topk_neighbors_plain, topk_neighbors_quantized_plain
 from epcnet_torch.scripts.train_bench import blob_submaps
-from epcnet_torch.serve import PlaceIndex, QueryScheduler
+from epcnet_torch.serve import PlaceIndex, QueryScheduler, _capacity
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.utils.timing import cuda_ms
 from epcnet_torch.weights import init_flat_variables
@@ -116,14 +116,14 @@ def _plain_vs_blocked(index: PlaceIndex, desc: np.ndarray, dev: torch.device) ->
     path before blocked retrieval) against the serving path on the index's
     snapshot and the same descriptors; on the card both are timed by CUDA
     events."""
-    dbj, scj, _, rows = index._snapshot_db(len(desc), K)
+    dbj, scj, _, rows = index._snapshot_db(len(desc), K)  # one shard a list
     q = torch.from_numpy(desc).to(dev)
     if index.quantize == "int8":
         def plain():
-            return topk_neighbors_quantized_plain(q, dbj, scj, K)
+            return topk_neighbors_quantized_plain(q, dbj[0], scj[0], K)
     else:
         def plain():
-            return topk_neighbors_plain(q, dbj, K)
+            return topk_neighbors_plain(q, dbj[0], K)
 
     def blocked():
         return index._retrieve(q, dbj, scj, K, rows)
@@ -131,7 +131,7 @@ def _plain_vs_blocked(index: PlaceIndex, desc: np.ndarray, dev: torch.device) ->
     with torch.inference_mode():
         ids_p, d_p = plain()
         ids_b, d_b = blocked()
-        out = {"capacity": int(dbj.shape[0]),
+        out = {"capacity": _capacity(dbj),
                "ids_equal": bool(torch.equal(ids_p, ids_b)),
                "max_abs_dist_diff": float((d_p - d_b).abs().max()),
                "plain_transient_bytes": _transient(dev, plain),
@@ -315,14 +315,14 @@ def ingest(embed, dim: int, query_pts: np.ndarray, dev: torch.device, rows: int,
     sync_chunk, query = index._sync_chunk, index.query  # bound methods
 
     def timed_chunk():  # runs under the sync lock: _dev_db changes only here
-        cap0 = 0 if index._dev_db is None else index._dev_db.shape[0]
+        cap0 = 0 if index._dev_db is None else _capacity(index._dev_db)
         t0 = time.perf_counter()
         try:
             return sync_chunk()
         finally:
             chunk_s.append(time.perf_counter() - t0)
             chunk_at.append(t0)
-            grew.append(index._dev_db is not None and index._dev_db.shape[0] != cap0)
+            grew.append(index._dev_db is not None and _capacity(index._dev_db) != cap0)
 
     def timed_query(pts, kq):  # the scheduler's dispatch
         t0 = time.perf_counter()

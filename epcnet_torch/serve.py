@@ -1,5 +1,5 @@
 """Descriptor serving: an online place-recognition index (twin of
-``epcnet_tpu/serve.py``, single device).
+``epcnet_tpu/serve.py``).
 
   service = PlaceIndex.from_checkpoint(log_dir)        # a port training run
   service = PlaceIndex.from_export("log/export")       # or an export pair
@@ -26,18 +26,27 @@ consistent prefix (the first query waits for the first chunk); ``flush()``
 gives read-your-writes on demand, and a sync failure surfaces on the next
 query or ``flush()``.
 
-On the card every sync runs on a CUDA stream of its own: the chunk goes
-from a pinned staging buffer (``non_blocking``) into the device buffer,
-and an event recorded after it is installed with the buffer. A query makes
-its stream wait on that event before it reads the buffer, and marks the
-buffer as used on its stream (``record_stream``), so the caching allocator
-does not hand the memory out while the query still reads it (a buffer
-replaced at a capacity growth). A large chunk thus never stalls the
-default stream that queries run on.
+On the card every sync runs on a CUDA stream of its own, one for each
+device that holds a shard: the chunk goes from a pinned staging buffer
+(``non_blocking``) into the device buffers, and an event recorded on each
+side stream after it is installed with the buffers. A query makes its
+stream on each device wait on that device's event before it reads the
+buffers, and marks each buffer as used on its stream (``record_stream``),
+so the caching allocator does not hand the memory out while the query
+still reads it (a buffer replaced at a capacity growth). A large chunk
+thus never stalls the default streams that queries run on.
 
-A ``mesh`` for sharded retrieval is ROADMAP item 6. ``warm_on_grow`` has
-no counterpart: eager PyTorch compiles nothing per DB capacity, so a
-capacity growth costs no compile to hide.
+With a ``mesh`` (a ``parallel.Mesh``) whose "db" axis is above 1 the
+device DB is sharded over that axis's devices: global row r lives on shard
+r % ndev at local row r // ndev, so the capacity (in rows) is a multiple of
+the shard count and each shard grows in place, by doubling, on its own
+device; a chunk of rows goes to the shards that own them; a query retrieves
+on every shard and merges the candidates on the first device
+(``ops/retrieval.py::topk_over_shards``); ``warmup`` runs the sharded
+retrieval. The staged chunk is laid out shard by shard, so each shard's
+rows go to its device in one contiguous copy. ``warm_on_grow`` has no counterpart: eager PyTorch
+compiles nothing per DB capacity, so a capacity growth costs no compile to
+hide.
 
 Concurrency: a lock guards the host bookkeeping; device work runs outside
 it on snapshots (buffer, synced rows P, event). A chunk is written in place
@@ -74,6 +83,7 @@ from epcnet_torch.ops.retrieval import (
     quantize_descriptors,
     topk_neighbors,
     topk_neighbors_quantized,
+    topk_over_shards,
 )
 from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.train.step import build_embed_fn
@@ -82,9 +92,6 @@ from epcnet_torch.weights import flat_variables, load_export
 # rows of one host segment (64 MB at dim 256); a full segment is never
 # copied again
 HOST_SEGMENT_ROWS = 1 << 16
-
-_MESH = "a mesh (sharded retrieval) is not ported yet (ROADMAP item 6, Multi-device)"
-
 
 def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
     """Zero-pad the leading axis up to the next ``multiple`` (the fixed
@@ -112,16 +119,19 @@ class PlaceIndex:
     ):
         """``embed_fn`` maps a [B, N, 3] tensor on ``device`` to [B, dim]
         descriptors there (``train.step.build_embed_fn``), or is None for a
-        descriptor-only index. ``device`` is the card unless ``"cpu"``."""
+        descriptor-only index. ``device`` is the card unless ``"cpu"``.
+        ``mesh``: a ``parallel.Mesh``; with a "db" axis above 1 the device
+        DB is sharded over its devices, and queries run on the first."""
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize={quantize!r} not in {{'none', 'int8'}}")
         if sync_mode not in ("blocking", "background"):
             raise ValueError(
                 f"sync_mode={sync_mode!r} not in {{'blocking', 'background'}}"
             )
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        self.device = resolve_device(device)
+        sharded = mesh is not None and mesh.shape.get("db", 1) > 1
+        self.device = resolve_device(mesh.devices("db")[0] if sharded else device)
+        # the devices of the DB's shards (one: unsharded)
+        self._shards = mesh.devices("db") if sharded else [self.device]
         self.sync_mode = sync_mode
         self.num_points = num_points
         # max_k bounds the fused path's top-k: it always retrieves
@@ -141,11 +151,14 @@ class PlaceIndex:
         self._segs: list[np.ndarray] = []
         self._n = 0
         self._meta: list = []
-        self._dev_db = None  # [capacity, dim] device tensor, far-padded tail
-        self._dev_scale = None  # [capacity, 1] fp32 row scales (int8 mode)
+        # a [capacity / ndev, dim] tensor a shard, far-padded tails
+        self._dev_db: list | None = None
+        self._dev_scale: list | None = None  # [capacity / ndev, 1] fp32 row scales (int8)
         self._dev_rows = 0  # host rows already resident on the device
-        self._dev_ready = None  # CUDA event after which _dev_db/_dev_scale are written
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._dev_ready = None  # CUDA events (one a side stream) after which _dev_* are written
+        # the sync's side stream of each device that holds a shard (card)
+        self._streams = ({dev: torch.cuda.Stream(dev) for dev in self._shards}
+                         if self.device.type == "cuda" else {})
         self._staging = None  # pinned host rows of one chunk (card)
         self._add_lock = threading.Lock()  # one add at a time writes the host master
         self._lock = threading.RLock()  # guards _segs/_n/_meta/_dev_* bookkeeping
@@ -164,17 +177,19 @@ class PlaceIndex:
         cls, basename: str, embed_batch: int = 32, quantize: str = "none",
         max_k: int = 25, sync_mode: str = "blocking",
         sync_chunk_rows: int | None = None,
-        device: str | torch.device | None = None,
+        device: str | torch.device | None = None, mesh=None,
     ) -> "PlaceIndex":
         """An index over the model in ``<basename>.npz/.json`` as written by
         ``epcnet_tpu/cli/export.py`` or ``weights.save_export``: how weights
-        the JAX package trained reach the port."""
+        the JAX package trained reach the port; ``mesh`` shards the device
+        DB."""
         cfg, flat = load_export(basename)
-        embed = build_embed_fn(cfg.model, device, variables=flat)
-        return cls(embed, cfg.model.output_dim, embed_batch, quantize=quantize,
+        dev = resolve_device(mesh.devices("db")[0] if mesh is not None else device)
+        embed = build_embed_fn(cfg.model, dev, variables=flat)
+        return cls(embed, cfg.model.output_dim, embed_batch, mesh=mesh, quantize=quantize,
                    max_k=max_k, num_points=cfg.data.num_points,
                    sync_mode=sync_mode, sync_chunk_rows=sync_chunk_rows,
-                   device=device)
+                   device=dev)
 
     @classmethod
     def from_checkpoint(
@@ -186,14 +201,12 @@ class PlaceIndex:
         """An index over the latest port checkpoint of a run
         (``<log_dir>/ckpt``, ``train/checkpoint.py``; ``FileNotFoundError``
         where there is none), with ``<log_dir>/config.json`` (the defaults
-        where it is absent)."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        dev = resolve_device(device)  # before any work: no card, no index
+        where it is absent); ``mesh`` shards the device DB."""
+        dev = resolve_device(mesh.devices("db")[0] if mesh is not None else device)
         cfg = read_run_config(log_dir)
         model, _ = restore_model(log_dir, cfg)
         embed = build_embed_fn(cfg.model, dev, variables=flat_variables(model))
-        return cls(embed, cfg.model.output_dim, embed_batch, quantize=quantize,
+        return cls(embed, cfg.model.output_dim, embed_batch, mesh=mesh, quantize=quantize,
                    max_k=max_k, num_points=cfg.data.num_points,
                    sync_mode=sync_mode, sync_chunk_rows=sync_chunk_rows,
                    device=dev)
@@ -272,7 +285,7 @@ class PlaceIndex:
             dbj, scj, kk, rows = self._snapshot_db(n, k)
             # top-k = min(max_k, capacity) over the synced prefix: its first
             # kk <= rows results are real, so the host trim is exact
-            k_fused = min(self.max_k, int(dbj.shape[0]))
+            k_fused = min(self.max_k, _capacity(dbj))
             with torch.inference_mode():
                 desc = self._embed_padded(points)
                 idx, dist = self._retrieve(desc, dbj, scj, k_fused, rows)
@@ -314,15 +327,16 @@ class PlaceIndex:
         return dbj, scj, kk, rows
 
     def _await(self, ready, *tensors) -> None:
-        """Order the caller's stream after the sync that wrote ``tensors``
-        and keep their memory from reuse until that stream is done."""
+        """Order the caller's stream on each shard device after the sync
+        that wrote ``tensors`` and keep their memory from reuse until that
+        stream is done."""
         if ready is None:
             return
-        stream = torch.cuda.current_stream(self.device)
-        stream.wait_event(ready)
-        for t in tensors:
-            if t is not None:
-                t.record_stream(stream)
+        for dev, event in ready.items():
+            torch.cuda.current_stream(dev).wait_event(event)
+        for shards in tensors:
+            for t in shards or ():
+                t.record_stream(torch.cuda.current_stream(t.device))
 
     def _raise_sync_error(self) -> None:
         """Surface a background-sync failure on the caller's thread (call
@@ -338,18 +352,23 @@ class PlaceIndex:
         q = torch.from_numpy(_pad_rows(np.asarray(desc, np.float32),
                                        self.embed_batch)).to(self.device)
         # capacity-keyed top-k for k <= max_k, as on the fused path
-        k_prog = min(self.max_k, int(dbj.shape[0])) if k <= self.max_k else kk
+        k_prog = min(self.max_k, _capacity(dbj)) if k <= self.max_k else kk
         with torch.inference_mode():
             idx, dist = self._retrieve(q, dbj, scj, k_prog, rows)
         return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
 
     def _retrieve(self, q: torch.Tensor, dbj, scj, k_prog: int, rows: int):
-        """The one dispatch point for descriptor retrieval (int8 vs fp32)
-        over the first ``rows`` rows, shared by both query paths and
-        warmup."""
+        """The one dispatch point for descriptor retrieval (sharded vs int8
+        vs fp32) over the first ``rows`` rows, shared by both query paths
+        and warmup."""
+        if len(dbj) > 1:
+            nd = len(dbj)
+            # shard s holds global rows s, s + nd, ...: ceil((rows - s) / nd) of them
+            valid = [max(0, -(-(rows - s) // nd)) for s in range(nd)]
+            return topk_over_shards(q, dbj, k_prog, scj, n_valid=valid)
         if self.quantize == "int8":
-            return topk_neighbors_quantized(q, dbj, scj, k_prog, n_valid=rows)
-        return topk_neighbors(q, dbj, k_prog, n_valid=rows)
+            return topk_neighbors_quantized(q, dbj[0], scj[0], k_prog, n_valid=rows)
+        return topk_neighbors(q, dbj[0], k_prog, n_valid=rows)
 
     # ------------------------------------------------------------------
     def flush(self) -> None:
@@ -412,67 +431,87 @@ class PlaceIndex:
         if n == 0 or (start == n and dev_db is not None):
             return 0
         end = min(n, start + self.sync_chunk_rows)
-        capacity = max(self.block_rows, 0 if dev_db is None else dev_db.shape[0])
+        capacity = max(self.block_rows * len(self._shards),
+                       0 if dev_db is None else _capacity(dev_db))
         while capacity < end:
             capacity *= 2
         upd = self._stage(segs, start, end)
-        with (torch.cuda.stream(self._stream) if self._stream is not None
-              else contextlib.nullcontext()):
+        with contextlib.ExitStack() as on_side:
+            for stream in self._streams.values():
+                on_side.enter_context(torch.cuda.stream(stream))
             dev_db, dev_scale = self._append_fn(dev_db, dev_scale, upd, start, capacity)
             ready = None
-            if self._stream is not None:
-                ready = torch.cuda.Event()
-                ready.record(self._stream)
+            if self._streams:
+                ready = {dev: torch.cuda.Event() for dev in self._streams}
+                for dev, event in ready.items():
+                    event.record(self._streams[dev])
         with self._lock:
             self._dev_db, self._dev_scale, self._dev_ready = dev_db, dev_scale, ready
             self._dev_rows = end
             self._counters["dev_syncs"] += 1
             self._sync_cv.notify_all()
             backlog = self._n - end
-        if ready is not None:
-            ready.synchronize()  # the next chunk reuses the staging buffer
+        for event in (ready or {}).values():
+            event.synchronize()  # the next chunk reuses the staging buffer
         return backlog
 
     def _stage(self, segs: list, start: int, end: int) -> torch.Tensor:
-        """Host rows [start, end) as a tensor: on the card a view of the
-        pinned staging buffer, filled segment by segment (a pageable source
-        would make the copy synchronous)."""
-        if self._stream is None:
-            return torch.from_numpy(_rows(segs, start, end, self.dim))
+        """Host rows [start, end) as one tensor, shard by shard: the rows of
+        shard 0 (global row r % ndev == 0) in order, then shard 1's, ...
+        (unsharded: the rows as they are). On the card a view of the pinned
+        staging buffer, filled piece by piece (a pageable source would make
+        the copy synchronous)."""
+        nd = len(self._shards)
+        if nd == 1:
+            parts = _pieces(segs, start, end)
+        else:
+            rows = _rows(segs, start, end, self.dim)
+            parts = [rows[(s - start) % nd::nd] for s in range(nd)]
+        if not self._streams:
+            return torch.from_numpy(parts[0] if len(parts) == 1 else np.concatenate(parts))
         if self._staging is None:
             self._staging = torch.empty((self.sync_chunk_rows, self.dim),
                                         dtype=torch.float32, pin_memory=True)
         out = self._staging[:end - start]
         at = 0
-        for piece in _pieces(segs, start, end):
-            out[at:at + len(piece)].copy_(torch.from_numpy(piece))
-            at += len(piece)
+        for part in parts:
+            out[at:at + len(part)].copy_(torch.from_numpy(part))
+            at += len(part)
         return out
 
     def _append(self, db, scale, upd: torch.Tensor, start: int, capacity: int):
-        """(db, scale) with the host rows ``upd`` written from row ``start``
-        (int8 mode: quantized on the device, with their scales): in place
-        when ``db`` has ``capacity`` rows, else in a new [capacity, dim]
-        buffer, filler past the copied prefix [0, start)."""
+        """(db, scale), per shard, with the host rows ``upd`` (``_stage``'s
+        shard-by-shard layout) written from global row ``start`` (int8 mode:
+        quantized on the device, with their scales): in place when the
+        shards hold ``capacity`` rows together, else in new [capacity / ndev,
+        dim] buffers, filler past the copied prefix. Global row r is shard r
+        % ndev's local row r // ndev."""
         quant = self.quantize == "int8"
-        if db is None or db.shape[0] < capacity:
-            grown = torch.full((capacity, self.dim), 127 if quant else 1e6,
-                               dtype=torch.int8 if quant else torch.float32,
-                               device=self.device)
-            grown_scale = (torch.full((capacity, 1), 1e6, dtype=torch.float32,
-                                      device=self.device) if quant else None)
-            if db is not None:
-                grown[:start] = db[:start]
-                if quant:
-                    grown_scale[:start] = scale[:start]
-            db, scale = grown, grown_scale
-        upd = upd.to(self.device, non_blocking=True)
-        end = start + upd.shape[0]
-        if quant:
-            db[start:end], scale[start:end] = quantize_descriptors(upd)
-        else:
-            db[start:end] = upd
-        return db, scale
+        nd, end = len(self._shards), start + upd.shape[0]
+        out_db, out_scale, at = [], [], 0
+        for s, dev in enumerate(self._shards):
+            d = None if db is None else db[s]
+            sc = None if scale is None else scale[s]
+            lo, hi = -(-(start - s) // nd), -(-(end - s) // nd)  # this shard's local rows
+            if d is None or d.shape[0] < capacity // nd:
+                grown = torch.full((capacity // nd, self.dim), 127 if quant else 1e6,
+                                   dtype=torch.int8 if quant else torch.float32, device=dev)
+                grown_sc = (torch.full((capacity // nd, 1), 1e6, dtype=torch.float32,
+                                       device=dev) if quant else None)
+                if d is not None:
+                    grown[:lo] = d[:lo]
+                    if quant:
+                        grown_sc[:lo] = sc[:lo]
+                d, sc = grown, grown_sc
+            rows = upd[at:at + hi - lo].to(dev, non_blocking=True)
+            at += hi - lo
+            if quant:
+                d[lo:hi], sc[lo:hi] = quantize_descriptors(rows)
+            else:
+                d[lo:hi] = rows
+            out_db.append(d)
+            out_scale.append(sc)
+        return out_db, (out_scale if quant else None)
 
     # the device append: the one seam tests slow down or break (an instance
     # attribute overrides it). A class attribute, not self._append stored on
@@ -500,13 +539,13 @@ class PlaceIndex:
             self._await(ready, dbj, scj)
         else:
             quant = self.quantize == "int8"
-            dbj = torch.full((self.block_rows, self.dim), 127 if quant else 1e6,
-                             dtype=torch.int8 if quant else torch.float32,
-                             device=self.device)
-            scj = (torch.full((self.block_rows, 1), 1e6, device=self.device)
+            dbj = [torch.full((self.block_rows, self.dim), 127 if quant else 1e6,
+                              dtype=torch.int8 if quant else torch.float32, device=dev)
+                   for dev in self._shards]
+            scj = ([torch.full((self.block_rows, 1), 1e6, device=dev) for dev in self._shards]
                    if quant else None)
-            rows = self.block_rows
-        k = min(self.max_k, int(dbj.shape[0]))
+            rows = _capacity(dbj)
+        k = min(self.max_k, _capacity(dbj))
         with torch.inference_mode():
             if self._embed is not None:
                 q = self._embed_padded(np.zeros((1, num_points, 3), np.float32))
@@ -518,17 +557,14 @@ class PlaceIndex:
     def metrics(self) -> dict:
         """Operational gauges + counters for monitoring."""
         with self._lock:
-            cap = 0 if self._dev_db is None else int(self._dev_db.shape[0])
-            dev_bytes = 0
-            if self._dev_db is not None:
-                dev_bytes = self._dev_db.numel() * self._dev_db.element_size()
-                if self._dev_scale is not None:
-                    dev_bytes += self._dev_scale.numel() * 4
+            cap = 0 if self._dev_db is None else _capacity(self._dev_db)
+            dev_bytes = sum(t.numel() * t.element_size()
+                            for t in (self._dev_db or []) + (self._dev_scale or []))
             return {
                 "size": self._n,
                 "dim": self.dim,
                 "quantize": self.quantize,
-                "sharded": False,
+                "sharded": len(self._shards) > 1,
                 "sync_mode": self.sync_mode,
                 "device_rows_capacity": cap,
                 "device_bytes": int(dev_bytes),
@@ -577,6 +613,11 @@ class PlaceIndex:
             self._dev_db = None  # full reload: the next query re-syncs
             self._dev_scale = self._dev_ready = None
             self._dev_rows = 0
+
+
+def _capacity(shards: list) -> int:
+    """Rows of a device DB held as per-shard buffers."""
+    return sum(int(t.shape[0]) for t in shards)
 
 
 def _write_rows(segs: list, n: int, rows: np.ndarray) -> None:

@@ -15,6 +15,7 @@ from epcnet_torch.configs import DataConfig, TrainConfig
 from epcnet_torch.data.loader import TupleLoader
 from epcnet_torch.data.native_loader import load_pc_files_native
 from epcnet_torch.data.tuples import TrainingTuples
+from epcnet_torch.parallel.collectives import all_gather, group_rank, group_size
 from epcnet_torch.train.step import model_embed_fn
 
 
@@ -49,23 +50,31 @@ class MiningCache:
         # (hardest negatives [n, k] -1-padded, generation)
         self._hard: tuple[np.ndarray, int] | None = None
 
-    def refresh(self, model: torch.nn.Module) -> None:
+    def refresh(self, model: torch.nn.Module, group=None) -> None:
         """Re-embed every training submap with ``model`` as it stands, in
         batches of ``batch_size`` (the tail zero-padded, which running-stat
         BN cannot see), on the model's device; the latents reach the host in
-        one copy at the end."""
+        one copy at the end. With a process ``group`` each rank embeds its
+        block of the sweep and an ``all_gather`` gives every rank the same
+        latents."""
         embed = model_embed_fn(model)
         n = len(self.tuples.queries)
         bs = self.batch_size
-        chunks = []
-        for s in range(0, n, bs):
-            ids = range(s, min(s + bs, n))
+        per = -(-n // group_size(group))
+        first = group_rank(group) * per
+        mine = range(first, min(first + per, n))
+        chunks = [torch.zeros((0, model.cfg.output_dim), device=embed.device)]
+        for s in range(mine.start, mine.stop, bs):
+            ids = range(s, min(s + bs, mine.stop))
             buf = np.zeros((bs, self.data_cfg.num_points, 3), np.float32)
             load_pc_files_native([self.tuples.queries[i]["query"] for i in ids],
                                  self.data_cfg.dataset_root, self.data_cfg.num_points,
                                  out=buf[:len(ids)], n_threads=self.data_cfg.loader_threads)
             chunks.append(embed(buf)[:len(ids)])
-        lat_dev = torch.cat(chunks)
+        local = torch.cat(chunks)
+        # the last ranks' blocks may be short (or empty): pad to `per` rows
+        local = torch.cat([local, local.new_zeros((per - len(local), local.shape[1]))])
+        lat_dev = all_gather(local, group).reshape(-1, local.shape[1])[:n]
         gen = 0 if self._cache is None else self._cache[1] + 1
         self._hard = (self._precompute_hard_negatives(lat_dev, gen), gen)
         self._cache = (lat_dev.cpu().numpy(), gen)

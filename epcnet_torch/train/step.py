@@ -16,6 +16,16 @@ step, as optax. ``grad_accum_steps`` splits the B tuples into micro-batches
 the JAX way (INTERLEAVED: micro j takes tuples ``j::accum``), sums their
 gradients, divides by ``accum`` and applies one update; the BN updates
 chain, one per micro-batch.
+
+Data parallelism: a step built with ``group`` (the "data" group of a
+``parallel.ProcessMesh``, one process a rank) takes the GLOBAL batch on
+every rank and runs its rank's block of the tuple axis (JAX's
+``P("data")``). BN's statistics span the global batch (``set_bn_group``:
+as GSPMD makes them in the JAX step; DDP's per-replica BN would not match),
+the gradients are summed over the group and divided by its size, so one
+step equals the single-device step, and the metrics are averaged over the
+group. Under ``grad_accum_steps`` micro-batch j of rank r is its local
+tuples ``j::accum``: JAX's interleaved split restricted to the rank's block.
 """
 
 from __future__ import annotations
@@ -31,6 +41,9 @@ from epcnet_torch import losses as losses_lib
 from epcnet_torch.configs import ModelConfig, TrainConfig
 from epcnet_torch.device import resolve_device
 from epcnet_torch.models import commit_batch_stats, get_model
+from epcnet_torch.models.layers import set_bn_group
+from epcnet_torch.parallel.collectives import all_reduce_, group_rank, group_size
+from epcnet_torch.parallel.mesh import data_block
 from epcnet_torch.train.state import TrainState, bn_momentum_schedule, lr_schedule
 from epcnet_torch.utils.profiling import profile_region
 from epcnet_torch.weights import init_flat_variables, load_flat_variables
@@ -94,25 +107,56 @@ def _backward_and_commit(model: nn.Module, loss: torch.Tensor) -> None:
         commit_batch_stats(model)
 
 
-def _apply_update(state: TrainState, lr: float, accum: int) -> None:
-    """Average accumulated gradients, set the step's learning rate, update.
+def average_grads(model: nn.Module, group, divisor: int = 1) -> None:
+    """Each parameter's gradient summed over ``group`` (one collective of
+    every gradient, flattened) and divided by ``divisor`` x the group size.
     A parameter that took no gradient gets zeros, as JAX's gradient tree
-    has a zero leaf for it (optax's moments still decay). The gradients stay
-    in ``.grad`` until the next step starts (``weights.flat_grads``)."""
+    has a zero leaf for it (optax's moments still decay)."""
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if group is None:
+        if divisor > 1:
+            for p in params:
+                p.grad.div_(divisor)
+        return
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    all_reduce_(flat, group).div_(divisor * group_size(group))
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+        at += p.numel()
+
+
+def _local(batch: Mapping, group) -> Mapping:
+    """This rank's block of the tuple axis (the whole batch without a group)."""
+    if group is None:
+        return batch
+    return {k: data_block(v, group_rank(group), group_size(group)) for k, v in batch.items()}
+
+
+def _group_mean(vals: torch.Tensor, group) -> torch.Tensor:
+    """Per-rank metric means -> their mean over the group."""
+    return vals if group is None else all_reduce_(vals, group).div_(group_size(group))
+
+
+def _apply_update(state: TrainState, lr: float, accum: int, group=None) -> None:
+    """Average accumulated gradients (over the micro-batches and the
+    group's ranks), set the step's learning rate, update. The gradients
+    stay in ``.grad`` until the next step starts (``weights.flat_grads``)."""
     with profile_region("train/optimizer"):
-        for p in state.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            elif accum > 1:
-                p.grad.div_(accum)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        average_grads(state.model, group, accum)
+        for group_ in state.optimizer.param_groups:
+            group_["lr"] = lr
         state.optimizer.step()
     state.step += 1
 
 
-def build_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
-    """Returns ``step(state, batch) -> (state, metrics)``.
+def build_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                     group=None) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)``; data-parallel
+    over ``group`` (see the module docstring) when one is given.
 
     batch: query [B,N,3], positives [B,P,N,3], negatives [B,Ng,N,3],
     other_neg [B,N,3] (needed by the quadruplet losses), numpy or tensors.
@@ -139,13 +183,15 @@ def build_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable
         return torch.stack([loss.detach(), best, min_neg])
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        batch = to_device(batch, state.device)
+        batch = to_device(_local(batch, group), state.device)
+        set_bn_group(state.model, group)
         step0 = state.step
         mom = bn_mom(step0)
         micros = [batch] if accum == 1 else _micro_batches(batch, accum)
         state.optimizer.zero_grad(set_to_none=True)
         vals = torch.stack([micro_step(state.model, mb, mom) for mb in micros]).mean(0)
-        _apply_update(state, lr(step0), accum)
+        vals = _group_mean(vals, group)
+        _apply_update(state, lr(step0), accum, group)
         return state, {"loss": vals[0], "learning_rate": torch.tensor(lr(step0)),
                        "bn_momentum": torch.tensor(mom), "best_pos_dist": vals[1],
                        "min_neg_dist": vals[2]}
@@ -153,12 +199,13 @@ def build_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable
     return step
 
 
-def build_multi_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig) -> Callable:
+def build_multi_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                           group=None) -> Callable:
     """``steps_per_dispatch``: ``multi(state, batches)`` over a [S, ...]
     stack of batches runs S single steps in order (the JAX ``lax.scan`` of
     the single step, which eager PyTorch has no reason to fuse) and returns
     the LAST step's metrics."""
-    single = build_train_step(model_cfg, train_cfg)
+    single = build_train_step(model_cfg, train_cfg, group)
 
     def multi(state: TrainState, batches) -> tuple[TrainState, dict]:
         s = len(batches["query"])
@@ -175,6 +222,7 @@ def build_distill_step(
     teacher_cfg: ModelConfig,
     train_cfg: TrainConfig,
     alpha: float = 1.0,
+    group=None,
 ) -> Callable:
     """EPC-Net-L distillation [PAPER §III-D]: metric loss + ``alpha`` x the
     feature-mimic MSE against the frozen teacher's descriptors of the same
@@ -184,7 +232,8 @@ def build_distill_step(
     is a model (``get_model(teacher_cfg)`` with its weights), run in eval
     mode under ``torch.no_grad`` on the student's device; ``remat`` wraps
     the student's forward only. Metrics: ``loss``, ``metric_loss``,
-    ``mimic_loss`` (0-d tensors, averaged over micro-batches)."""
+    ``mimic_loss`` (0-d tensors, averaged over micro-batches). Data-parallel
+    over ``group`` as ``build_train_step``."""
     del student_cfg, teacher_cfg  # the state and the teacher hold the models
     loss_fn = losses_lib.get_loss(train_cfg.loss)
     quad = "quadruplet" in train_cfg.loss
@@ -204,14 +253,15 @@ def build_distill_step(
         return torch.stack([loss.detach(), metric.detach(), mimic.detach()])
 
     def step(state: TrainState, teacher: nn.Module, batch) -> tuple[TrainState, dict]:
-        batch = to_device(batch, state.device)
+        batch = to_device(_local(batch, group), state.device)
+        set_bn_group(state.model, group)
         step0 = state.step
         mom = bn_mom(step0)
         micros = [batch] if accum == 1 else _micro_batches(batch, accum)
         state.optimizer.zero_grad(set_to_none=True)
-        vals = torch.stack([micro_step(state.model, teacher, mb, mom)
-                            for mb in micros]).mean(0)
-        _apply_update(state, lr(step0), accum)
+        vals = _group_mean(torch.stack([micro_step(state.model, teacher, mb, mom)
+                                        for mb in micros]).mean(0), group)
+        _apply_update(state, lr(step0), accum, group)
         return state, {"loss": vals[0], "metric_loss": vals[1], "mimic_loss": vals[2]}
 
     return step

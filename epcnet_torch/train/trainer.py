@@ -1,5 +1,4 @@
-"""The training loop (twin of ``epcnet_tpu/train/trainer.py``, one
-device).
+"""The training loop (twin of ``epcnet_tpu/train/trainer.py``).
 
 Epoch loop over shuffled tuples, hard-negative mining refreshes, the
 learning-rate and BN-momentum schedules, checkpoints at a step cadence and
@@ -7,6 +6,15 @@ at every epoch end, JSONL metrics, and an exact resume at an epoch or in the
 middle of one. Batches go to the card from pinned host memory while the
 loader's threads assemble the next ones; the step returns its metrics as
 tensors, which are read (a host sync) only where they are logged.
+
+With ``mesh`` (a ``parallel.ProcessMesh``, one process a rank) training is
+data-parallel over its "data" axis: every rank holds the replicated state
+(broadcast from rank 0 at the start), loads the same global batches and
+runs its block of each (``train/step.py``). Only rank 0 logs and writes
+checkpoints, the other ranks waiting at a barrier; ``--restore`` reads on
+every rank; the mining sweep is split over the ranks and gathered; a
+preemption stops every rank at the same dispatch (an ``all_reduce`` MAX of
+the local flags every 8 dispatches).
 """
 
 from __future__ import annotations
@@ -15,11 +23,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from epcnet_torch.configs import ExperimentConfig
 from epcnet_torch.data.loader import TupleLoader
 from epcnet_torch.data.tuples import TrainingTuples
 from epcnet_torch.device import resolve_device
+from epcnet_torch.parallel.collectives import all_reduce_, barrier, group_size
+from epcnet_torch.parallel.mesh import replicate_
 from epcnet_torch.train.checkpoint import CheckpointManager
 from epcnet_torch.train.mining import MiningCache
 from epcnet_torch.train.state import TrainState, create_train_state
@@ -32,7 +43,8 @@ from epcnet_torch.train.step import (
 from epcnet_torch.utils.logging import MetricsLogger, log_string
 from epcnet_torch.utils.profiling import profile_region
 
-_MESH = "mesh= (data-parallel training) is not ported yet (ROADMAP item 6, Multi-device)"
+# dispatches between two preemption-consensus collectives
+_POLL_EVERY = 8
 
 
 class Trainer:
@@ -49,10 +61,9 @@ class Trainer:
         """``step_fn``: an optional ``(state, batch) -> (state, metrics)``
         (e.g. a distillation step with the teacher bound) in place of the
         standard step; ``steps_per_dispatch`` applies to the standard step
-        only. ``device``: the card unless ``"cpu"``. ``mesh`` raises
-        (ROADMAP item 6)."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+        only (a custom step is built data-parallel by its caller).
+        ``device``: the card unless ``"cpu"``; each rank's own with
+        ``mesh``."""
         if "quadruplet" in cfg.train.loss and not cfg.data.use_other_neg:
             raise ValueError(
                 f"train.loss={cfg.train.loss!r} needs the tuple's fourth element: set "
@@ -60,16 +71,22 @@ class Trainer:
         self.cfg = cfg
         self.tuples = tuples
         self.device = resolve_device(device)
+        self.mesh = mesh
+        group = None if mesh is None else mesh.group("data")
+        self.world = None if mesh is None else mesh.world
+        self.primary = mesh is None or mesh.primary
         self.state: TrainState = create_train_state(cfg.model, cfg.train, self.device)
-        self.step_fn = step_fn if step_fn is not None else build_train_step(cfg.model, cfg.train)
-        self.multi_step_fn = (build_multi_train_step(cfg.model, cfg.train)
+        replicate_(self.state.model.state_dict().values(), self.world)
+        self.step_fn = (step_fn if step_fn is not None
+                        else build_train_step(cfg.model, cfg.train, group))
+        self.multi_step_fn = (build_multi_train_step(cfg.model, cfg.train, group)
                               if cfg.train.steps_per_dispatch > 1 and step_fn is None else None)
         self.embed_fn = model_embed_fn(self.state.model)
         self.loader = TupleLoader(tuples, cfg.data, cfg.train.batch_num_queries,
                                   seed=cfg.train.seed)
         self.mining = MiningCache(tuples, cfg.data, cfg.train)
         self.metrics = MetricsLogger(cfg.log_dir, metrics_name,
-                                     tensorboard=cfg.train.tensorboard)
+                                     tensorboard=cfg.train.tensorboard, primary=self.primary)
         self.ckpt = (CheckpointManager(f"{cfg.log_dir}/ckpt", cfg.train.keep_checkpoints)
                      if checkpoints else None)
 
@@ -97,9 +114,16 @@ class Trainer:
         return m
 
     def maybe_restore(self) -> int:
+        """Every rank reads the latest checkpoint."""
         if self.ckpt is not None:
             self.state = self.ckpt.restore(self.state)
         return self.state.step
+
+    def save_checkpoint(self, manager: CheckpointManager) -> None:
+        """Rank 0 writes; every rank leaves once the file is in place."""
+        if self.primary:
+            manager.save(self.state)
+        barrier(self.world)
 
     def _mark_epoch(self, epoch: int) -> None:
         """Record (epoch, step at its start), so checkpoints carry the
@@ -109,7 +133,7 @@ class Trainer:
 
     def _refresh_mining(self) -> None:
         with profile_region("mining_refresh"):
-            self.mining.refresh(self.state.model)
+            self.mining.refresh(self.state.model, self.world)
 
     # ------------------------------------------------------------------
     def train(self, on_epoch_end=None, should_stop=None) -> TrainState:
@@ -125,6 +149,8 @@ class Trainer:
         every dispatch; when it fires, the loop checkpoints and returns."""
         cfg = self.cfg
         t_start = time.time()
+        if should_stop is not None and group_size(self.world) > 1:
+            should_stop = self._consensus(should_stop)
         clouds_per_tuple = (1 + cfg.data.num_positives + cfg.data.num_negatives
                             + (1 if cfg.data.use_other_neg else 0))
         start_epoch = self.state.epoch
@@ -158,7 +184,7 @@ class Trainer:
                     self.metrics.write(step, m, epoch=epoch, submaps_per_sec=round(tput, 2))
                 if self.ckpt is not None and crossed(prev_step, step,
                                                      cfg.train.checkpoint_every_steps):
-                    self.ckpt.save(self.state)
+                    self.save_checkpoint(self.ckpt)
 
             preempted = False
             pending: list = []
@@ -191,7 +217,7 @@ class Trainer:
             if preempted:
                 self.loader.stop()
                 if self.ckpt is not None:
-                    self.ckpt.save(self.state)
+                    self.save_checkpoint(self.ckpt)
                 self.metrics.flush()
                 log_string(f"preemption requested: checkpointed at step {self.state.step} "
                            f"(epoch {epoch}) and stopping — resume with --restore")
@@ -210,9 +236,30 @@ class Trainer:
             # resumes straight into the next epoch
             self._mark_epoch(epoch + 1)
             if self.ckpt is not None:
-                self.ckpt.save(self.state)
+                self.save_checkpoint(self.ckpt)
             if on_epoch_end is not None:
                 on_epoch_end(self, epoch)
         log_string(f"training done in {time.time() - t_start:.1f}s")
         self.metrics.flush()
         return self.state
+
+    def _consensus(self, local_stop):
+        """``local_stop`` agreed over the ranks: signals reach ranks at
+        different times, and a rank that stops one dispatch after the others
+        would wait in a collective no one joins. Every ``_POLL_EVERY``
+        dispatches the ranks take the MAX of their flags (the count advances
+        alike on every rank, so the collectives match), and all stop at that
+        dispatch."""
+        state = {"calls": 0, "stop": False}
+
+        def should_stop() -> bool:
+            if state["stop"]:
+                return True
+            state["calls"] += 1
+            if state["calls"] % _POLL_EVERY:
+                return False
+            flag = torch.tensor([float(local_stop())], device=self.device)
+            state["stop"] = bool(all_reduce_(flag, self.world, dist.ReduceOp.MAX))
+            return state["stop"]
+
+        return should_stop

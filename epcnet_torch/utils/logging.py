@@ -26,14 +26,19 @@ class MetricsLogger:
     scalar under ``<log_dir>/tb`` through ``torch.utils.tensorboard``; where
     no backend can be imported the logger degrades to JSONL with a logged
     notice, as the JAX logger does. A value that is a tensor is read here
-    (``float``), so the train loop reads the card only where it logs."""
+    (``float``), so the train loop reads the card only where it logs.
+    ``primary=False`` (every rank but 0 of a multi-process run) makes every
+    write a no-op: ranks appending to one file would interleave lines."""
 
-    def __init__(self, log_dir: str, name: str = "metrics", tensorboard: bool = False):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str, name: str = "metrics", tensorboard: bool = False,
+                 primary: bool = True):
         self.path = os.path.join(log_dir, f"{name}.jsonl")
+        self._f = self._tb = None
+        if not primary:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         self._f = open(self.path, "a")
         self._name = name
-        self._tb = None
         if tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -43,6 +48,8 @@ class MetricsLogger:
                 log_string(f"tensorboard writer unavailable ({e!r}); JSONL only")
 
     def write(self, step: int, metrics: Mapping[str, Any], **extra) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": time.time(), **extra}
         for k, v in metrics.items():
             try:
@@ -59,11 +66,13 @@ class MetricsLogger:
     def flush(self) -> None:
         """A durability point (end of training, preemption): the JSONL file
         is flushed per write, the TensorBoard writer buffers."""
-        self._f.flush()
+        if self._f is not None:
+            self._f.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self._tb is not None:
             self._tb.close()

@@ -635,14 +635,12 @@ def test_int8_query_transient_bound(cuda):
     assert ids.shape == (32, 25)
 
 
-def test_background_ingest_consistent_prefixes(cuda):
-    """Background sync on its own stream while 8 threads query: every
+def _ingest_under_queries(ix, d) -> None:
+    """8 threads query ``ix`` (background sync) while ``d`` is added: every
     answer is the exact top-1 of a prefix no shorter than the one visible
     when it was sent; flush() makes every row visible."""
     import threading
 
-    d = _unit_rows_on(cuda, 300_000, seed=3).cpu().numpy()
-    ix = PlaceIndex(None, 256, embed_batch=8, sync_mode="background", device=cuda)
     ix.add_descriptors(d[:4096])
     ix.flush()
     errors = []
@@ -669,6 +667,28 @@ def test_background_ingest_consistent_prefixes(cuda):
     assert ix.metrics()["device_synced_rows"] == len(d)
     ids, _ = ix.query_descriptors(d[-8:], k=1)
     np.testing.assert_array_equal(ids[:, 0], np.arange(len(d) - 8, len(d)))
+
+
+def test_background_ingest_consistent_prefixes(cuda):
+    """Background sync on its own stream while 8 threads query
+    (``_ingest_under_queries``)."""
+    d = _unit_rows_on(cuda, 300_000, seed=3).cpu().numpy()
+    _ingest_under_queries(PlaceIndex(None, 256, embed_batch=8, sync_mode="background",
+                                     device=cuda), d)
+
+
+def test_sharded_background_ingest_consistent_prefixes(cuda):
+    """The same over two shards on one card: one side stream for the one
+    device, each chunk staged in pinned memory, an event a device."""
+    from epcnet_torch.configs import MeshConfig
+    from epcnet_torch.parallel import make_mesh
+
+    mesh = make_mesh(MeshConfig(data_axis=1, db_axis=2), ["cuda:0", "cuda:0"])
+    d = _unit_rows_on(cuda, 300_000, seed=4).cpu().numpy()
+    ix = PlaceIndex(None, 256, embed_batch=8, sync_mode="background", mesh=mesh)
+    assert len(ix._streams) == 1
+    _ingest_under_queries(ix, d)
+    assert ix._staging.is_pinned() and len(ix._dev_ready) == 1
 
 
 def test_http_server_on_card(cuda):
@@ -720,3 +740,52 @@ def test_http_server_on_card(cuda):
         srv.shutdown()
         srv.server_close()
         sched.stop()
+
+
+# -- the multi-device slice on one card ---------------------------------------
+
+
+def test_two_shard_retrieval_on_one_card(cuda):
+    """Sharded and ring top-k over [cuda:0, cuda:0] (fp32 and int8) and a
+    sharded PlaceIndex: the unsharded answers exactly."""
+    from epcnet_torch.configs import MeshConfig
+    from epcnet_torch.ops.retrieval import (
+        quantize_descriptors,
+        ring_topk_neighbors,
+        sharded_topk_neighbors,
+        topk_neighbors,
+        topk_neighbors_quantized,
+    )
+    from epcnet_torch.parallel import make_mesh
+
+    mesh = make_mesh(MeshConfig(data_axis=1, db_axis=2), ["cuda:0", "cuda:0"])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    db = torch.nn.functional.normalize(torch.randn(300_001, 256, device=cuda, generator=gen),
+                                       dim=-1)
+    q = db[::10_000] + 1e-3
+    want, _ = topk_neighbors(q, db, 25)
+    for fn in (sharded_topk_neighbors, ring_topk_neighbors):
+        got, _ = fn(q, db, 25, mesh)
+        assert torch.equal(got, want), fn.__name__
+    qi, sc = quantize_descriptors(db)
+    want_q, _ = topk_neighbors_quantized(q, qi, sc, 25)
+    got_q, _ = sharded_topk_neighbors(q, qi, 25, mesh, db_scale=sc)
+    assert torch.equal(got_q, want_q)
+    one = PlaceIndex(None, descriptor_dim=256, embed_batch=32, device=cuda)
+    two = PlaceIndex(None, descriptor_dim=256, embed_batch=32, mesh=mesh)
+    host = db[:20_000].cpu().numpy()
+    for ix in (one, two):
+        ix.add_descriptors(host)
+    np.testing.assert_array_equal(two.query_descriptors(host[::997], k=5)[0],
+                                  one.query_descriptors(host[::997], k=5)[0])
+    assert two.metrics()["sharded"]
+
+
+def test_staged_gloo_collectives_of_cuda_tensors(cuda, tmp_path):
+    """Two gloo ranks on the card: the ring shift (staged through host
+    memory) and all_gather / all_reduce / broadcast (gloo's own CUDA path)
+    give the plain values, and the results stay on the card."""
+    from torch_dist_worker import spawn
+
+    for o in spawn("cuda_collectives", 2, str(tmp_path), timeout=120):
+        assert all(bool(v) for v in o.values()), o

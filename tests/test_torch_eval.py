@@ -30,9 +30,11 @@ from epcnet_torch import configs as tcfg
 from epcnet_torch.cli import embed as t_embed_cli
 from epcnet_torch.cli import evaluate as t_eval_cli
 from epcnet_torch.cli import generate_tuples as t_gen
+from epcnet_torch.configs import MeshConfig
 from epcnet_torch.data import synthetic as t_syn
 from epcnet_torch.data import tuples as t_tup
 from epcnet_torch.evals import recall as t_recall
+from epcnet_torch.parallel import make_mesh
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.weights import save_export
 from test_torch_models import FP32_TOL, GOLDEN_KW, _seeded_stats
@@ -106,8 +108,16 @@ def test_get_recall_rejects():
     db = np.eye(4, dtype=np.float32)
     with pytest.raises(ValueError, match="quantize"):
         t_recall.get_recall(db, db, [[0]] * 4, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        t_recall.get_recall(db, db, [[0]] * 4, mesh=object(), device="cpu")
+    # a mesh shards the retrieval (tests/test_torch_sharded_retrieval.py); the
+    # same answers as without it
+    mesh = make_mesh(MeshConfig(data_axis=1, db_axis=2), ["cpu", "cpu"])
+    for quant in ("none", "int8"):
+        want = t_recall.get_recall(db, db, [[i] for i in range(4)], quantize=quant,
+                                   device="cpu")
+        got = t_recall.get_recall(db, db, [[i] for i in range(4)], mesh=mesh, quantize=quant,
+                                  device="cpu")
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
 
 
 def test_latency_probe_keys():
@@ -116,8 +126,9 @@ def test_latency_probe_keys():
     assert set(out) == {"p50_ms", "p99_ms", "device_ms"}
     assert all(np.isfinite(v) and v >= 0 for v in out.values())
     assert out["p99_ms"] >= out["p50_ms"] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        t_recall.retrieval_latency_probe(db, 4, mesh=object(), device="cpu")
+    mesh = make_mesh(MeshConfig(data_axis=1, db_axis=2), ["cpu", "cpu"])
+    out = t_recall.retrieval_latency_probe(db, 4, mesh=mesh, device="cpu")
+    assert set(out) == {"p50_ms", "p99_ms", "device_ms"}
 
 
 @pytest.fixture(scope="module")
@@ -179,8 +190,11 @@ def test_evaluate_dataset_matches(world):
         assert got[name].get("evaluated_pairs") == want[name].get("evaluated_pairs")
     assert got["oxford"]["evaluated_pairs"] == 4  # 3 x 2 pairs, 2 with the empty run
     assert 0 < got["average"]["recall_at"][-1] <= 1
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        t_recall.evaluate_dataset(embed, regions, tc.data, tc.eval, mesh=object())
+    mesh = make_mesh(MeshConfig(data_axis=1, db_axis=4), ["cpu"] * 4)
+    sharded = t_recall.evaluate_dataset(embed, regions, tc.data, tc.eval, mesh=mesh)
+    for name in want:
+        np.testing.assert_array_equal(sharded[name]["recall_at"], got[name]["recall_at"])
+        assert sharded[name]["recall_at_1pct"] == got[name]["recall_at_1pct"]
 
 
 def test_embed_entries_match_and_padding(world):
@@ -239,8 +253,10 @@ def test_evaluate_cli_flags(world, tmp_path, capsys):
     with pytest.raises(SystemExit):
         t_eval_cli.main(base + ["--database_pickle", "db.pickle"])
     assert "must be given together" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        t_eval_cli.main(base + ["--mesh"])
+    meshed = t_eval_cli.main(base + ["--mesh"])  # one CPU device: db axis 1
+    plain = t_eval_cli.main(base)
+    np.testing.assert_array_equal(meshed["results"]["average"]["recall_at"],
+                                  plain["results"]["average"]["recall_at"])
     out = t_eval_cli.main(base + ["--latency_probe", "--quantize", "int8",
                                   "--set", "eval.latency_probe_queries=16"])
     lat = out["latency"]
@@ -267,7 +283,9 @@ def _clouds(tmp_path, sizes):
 def test_embed_cli(world, tmp_path):
     """.bin and .npy inputs: the port's embed rows in input order, within
     1e-5 of the JAX CLI's; the manifest; JAX's error on a wrong N; and
-    --points_sharded refused."""
+    --points_sharded (one process: a world of one) within 2e-4 of the
+    batched rows, on clouds of any size (tests/test_points_sharded.py's
+    bound: gather means against the dense A @ F)."""
     log_dir = world["log_dir"]
     clouds, paths = _clouds(tmp_path, [N] * 5)
     out = str(tmp_path / "descs.npy")
@@ -291,9 +309,11 @@ def test_embed_cli(world, tmp_path):
                   *bad_paths])
         errs.append(str(e.value))
     assert errs[0] == errs[1] and "has 131 points but model.num_points=128" in errs[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        t_embed_cli.main(["--log_dir", log_dir, "--points_sharded", "--device", "cpu",
-                          *paths])
+    sharded = t_embed_cli.main(["--log_dir", log_dir, "--output", str(tmp_path / "s.npy"),
+                                "--points_sharded", "--pad_multiple", "8", "--device", "cpu",
+                                *paths, *bad_paths])
+    np.testing.assert_allclose(sharded[:5], got, atol=2e-4, rtol=0)
+    assert sharded.shape == (7, 256)
 
 
 @pytest.mark.parametrize("cli", ["generate_tuples", "evaluate", "embed"])

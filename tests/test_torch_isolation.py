@@ -117,3 +117,55 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert next(get_model(cfg, "cpu").parameters()).device.type == "cpu"
+
+
+def test_multi_device_modules_stand_alone():
+    """The multi-device layer and the gloo test worker import no JAX, no
+    ``epcnet_tpu`` and no ``conftest`` (the worker runs in processes of its
+    own, which must not touch the JAX platform)."""
+    files = [os.path.join(ROOT, "epcnet_torch", p) for p in
+             ("parallel/mesh.py", "parallel/multislice.py", "parallel/collectives.py",
+              "models/points_sharded.py", "ops/retrieval.py")]
+    files.append(os.path.join(ROOT, "tests", "torch_dist_worker.py"))
+    for f in files:
+        for mod in _imports(f):
+            assert mod.split(".")[0] not in FORBIDDEN + HOST_ONLY + ("conftest",), (f, mod)
+
+
+def test_multi_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from epcnet_torch.cli import distill, embed, evaluate, serve, train
+    from epcnet_torch.models.points_sharded import (
+        embed_points_sharded,
+        points_sharded_train_state,
+        shard_model,
+    )
+    from epcnet_torch.parallel import (
+        ProcessMesh,
+        make_mesh,
+        make_multislice_mesh,
+        maybe_initialize_distributed,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("EPCNET_COORDINATOR_ADDRESS", "localhost:1")  # never reached
+    cfg = tcfg.ModelConfig()
+    log = ["--log_dir", str(tmp_path)]
+    flat = {}
+    for call in (lambda: make_mesh(), lambda: make_mesh(devices=["cuda:0", "cuda:0"]),
+                 lambda: make_multislice_mesh(),
+                 lambda: maybe_initialize_distributed(),
+                 lambda: embed_points_sharded(flat, np.zeros((64, 3), np.float32), cfg,
+                                              ProcessMesh()),
+                 lambda: shard_model(cfg, flat),
+                 lambda: points_sharded_train_state(cfg, tcfg.TrainConfig(), ProcessMesh()),
+                 lambda: serve.main(log + ["--mesh"]),
+                 lambda: evaluate.main(["--dataset_root", str(tmp_path), "--mesh"] + log),
+                 lambda: embed.main(log + ["--points_sharded", "cloud.bin"]),
+                 lambda: train.main(["--dataset_root", str(tmp_path), "--mesh"] + log),
+                 lambda: distill.main(["--dataset_root", str(tmp_path), "--mesh",
+                                       "--teacher_log_dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not torch.distributed.is_initialized()

@@ -169,7 +169,7 @@ def test_chunked_sync_matches_oracle(quantize, sync_mode):
         np.testing.assert_array_equal(ids, oracle)
         np.testing.assert_allclose(dists, np.take_along_axis(d2, oracle, axis=1), atol=1e-5)
     assert idx.metrics()["sync_backlog_rows"] == 0
-    assert idx._dev_db.shape[0] == 512
+    assert idx._dev_db[0].shape[0] == 512
 
 
 def test_background_sync_prefix_then_flush():
@@ -250,19 +250,19 @@ def test_sync_appends_in_place_past_the_prefix():
     d = _unit_rows(rng, 100, idx.dim)
     idx.add_descriptors(d[:40])
     idx.flush()
-    buf = idx._dev_db
+    buf = idx._dev_db[0]  # the one shard of an unsharded index
     assert buf.shape[0] == 64 and idx._dev_rows == 40
     buf[40:] = torch.tensor(d[:1])  # rows past the prefix: copies of row 0
     ids, _ = idx.query_descriptors(d[:1], k=3)
     assert ids[0, 0] == 0 and (ids[0] < 40).all()
     idx.add_descriptors(d[40:60])
     idx.flush()
-    assert idx._dev_db is buf  # written in place
+    assert idx._dev_db[0] is buf  # written in place
     idx.add_descriptors(d[60:])
     idx.flush()
-    assert idx._dev_db is not buf and idx._dev_db.shape[0] == 128  # grown, prefix copied
-    np.testing.assert_array_equal(idx._dev_db[:100].numpy(), d)
-    assert (idx._dev_db[100:] == 1e6).all()
+    assert idx._dev_db[0] is not buf and idx._dev_db[0].shape[0] == 128  # grown, prefix copied
+    np.testing.assert_array_equal(idx._dev_db[0][:100].numpy(), d)
+    assert (idx._dev_db[0][100:] == 1e6).all()
     ids, _ = idx.query_descriptors(d[[0, 55, 99]], k=1)
     np.testing.assert_array_equal(ids[:, 0], [0, 55, 99])
 
@@ -331,7 +331,7 @@ def test_host_master_segments(monkeypatch, tmp_path, sync_mode):
     assert len(idx._segs) == 10 and len(idx) == 150
     np.testing.assert_array_equal(idx._db, d)
     idx.flush()
-    np.testing.assert_array_equal(idx._dev_db[:150].numpy(), d)
+    np.testing.assert_array_equal(idx._dev_db[0][:150].numpy(), d)
     ids, dists = idx.query_descriptors(d[[0, 15, 16, 31, 149]], k=1)
     np.testing.assert_array_equal(ids[:, 0], [0, 15, 16, 31, 149])
     assert dists.max() < 1e-6

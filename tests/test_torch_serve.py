@@ -114,7 +114,7 @@ def test_int8_matches_fp32():
     np.testing.assert_array_equal(out["int8"][2].ravel(), np.arange(180, 200))
     np.testing.assert_array_equal(out["int8"][2], out["none"][2])
     np.testing.assert_allclose(out["int8"][1][:, 0], out["none"][1][:, 0], atol=5e-3)
-    assert str(out["int8"][3]._dev_db.dtype) == "torch.int8"
+    assert str(out["int8"][3]._dev_db[0].dtype) == "torch.int8"
     assert out["int8"][3].metrics()["device_bytes"] == 256 * 32 + 256 * 4
 
 
@@ -200,10 +200,16 @@ def test_ids_match_jax_place_index(jax_state, embed):
 
 
 def test_unported_modes_raise(embed):
-    # background sync is ported (tests/test_torch_retrieval.py holds it)
+    # background sync and the mesh are ported (tests/test_torch_retrieval.py
+    # and tests/test_torch_sharded_retrieval.py hold them); a bad mode raises
     assert PlaceIndex(embed, sync_mode="background", device="cpu").sync_mode == "background"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        PlaceIndex(embed, mesh=object(), device="cpu")
+    from epcnet_torch.configs import MeshConfig
+    from epcnet_torch.parallel import make_mesh
+
+    mesh = make_mesh(MeshConfig(data_axis=1, db_axis=2), ["cpu", "cpu"])
+    assert PlaceIndex(embed, mesh=mesh, device="cpu").metrics()["sharded"]
+    with pytest.raises(ValueError, match="sync_mode"):
+        PlaceIndex(embed, sync_mode="eventual", device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         PlaceIndex(embed, quantize="int4", device="cpu")
 

@@ -75,8 +75,14 @@ def test_from_checkpoint_after_cli_train(tmp_path):
     np.testing.assert_array_equal(idx.embed(pts[:4]), want)
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         PlaceIndex.from_checkpoint(str(tmp_path / "nothing"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        PlaceIndex.from_checkpoint(log, mesh=object(), device="cpu")
+    from epcnet_torch.configs import MeshConfig
+    from epcnet_torch.parallel import make_mesh
+
+    sharded = PlaceIndex.from_checkpoint(
+        log, mesh=make_mesh(MeshConfig(data_axis=1, db_axis=2), ["cpu", "cpu"]))
+    sharded.add(pts)
+    np.testing.assert_array_equal(sharded.query(pts[:2], k=3)[0], idx.query(pts[:2], k=3)[0])
+    assert sharded.metrics()["sharded"]
 
 
 def _call(base, path, payload=None, raw=None):
@@ -161,7 +167,7 @@ def test_http_server_matches_jax(servers):
 def test_serve_cli_errors(tmp_path):
     with pytest.raises(FileNotFoundError, match="no port checkpoint"):
         serve_cli.main(["--log_dir", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(FileNotFoundError, match="no port checkpoint"):  # --mesh gets as far
         serve_cli.main(["--log_dir", str(tmp_path), "--mesh", "--device", "cpu"])
 
 

@@ -209,3 +209,24 @@ def test_gather_route_step_matches_jax():
     assert_grads(j, t, tol["grad"])
     assert_stats(j, t, tol["stats"])
     assert_params(j, t, tol["sgd"], step=1)
+
+
+def test_float64_gather_step_is_a_reference():
+    """``compute_dtype="float64"`` with the model in fp64 (``model.double()``),
+    the reference the chip check measures the points-sharded tuple step's
+    rounding from, on the gather route (the dense route's kernels take
+    bf16/fp32 only): every stage runs in fp64, and JAX's and the port's fp32
+    steps both lie within the fp32 gradient tolerance of it."""
+    fmt = dict(adjacency_format="gather")
+    j, t = run_both("epcnet", model_kw=dict(compute_dtype="float32", **fmt),
+                    optimizer="momentum", steps=1)
+    _, tc = _cfgs("epcnet", compute_dtype="float64", **fmt)
+    tt = tcfg.TrainConfig(learning_rate=LR, optimizer="momentum")
+    st = create_train_state(tc, tt, "cpu", variables=init_flat_variables(tc, 0))
+    st.model.double()
+    _, m = build_train_step(tc, tt)(st, seeded_batch(0))
+    assert all(p.grad.dtype == torch.float64 for p in st.model.parameters())
+    ref = {"grads": flat_grads(st.model), "metrics": [{"loss": float(m["loss"])}]}
+    for side in (t, j):
+        assert_loss(ref, side, TOL["fp32"]["loss"])
+        assert_grads(ref, side, TOL["fp32"]["grad"])

@@ -27,6 +27,7 @@ from epcnet_torch.cli import evaluate as eval_cli
 from epcnet_torch.cli import export as export_cli
 from epcnet_torch.cli import train as train_cli
 from epcnet_torch.data.tuples import TrainingTuples
+from epcnet_torch.parallel import ProcessMesh
 from epcnet_torch.train import Trainer, create_train_state
 from epcnet_torch.train.checkpoint import CheckpointManager
 from epcnet_torch.weights import flat_variables, load_export
@@ -67,8 +68,9 @@ def test_trainer_loss_decreases(tuples, synthetic_root, tmp_path):
     losses = [r["loss"] for r in recs]
     assert {"learning_rate", "bn_momentum", "best_pos_dist", "submaps_per_sec"} <= set(recs[0])
     assert np.mean(losses[len(losses) // 2:]) < np.mean(losses[:len(losses) // 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        Trainer(cfg, tuples, mesh=object(), device="cpu")
+    # mesh= with no process group: a world of one, rank 0 writing
+    one = Trainer(cfg, tuples, mesh=ProcessMesh(), checkpoints=False, device="cpu")
+    assert one.primary and one.world is None
 
 
 def test_trainer_epoch_resume(tuples, synthetic_root, tmp_path):
@@ -211,8 +213,10 @@ def test_cli_train_export_evaluate_round_trip(tmp_path):
     with torch.inference_mode():
         got = tr.state.model(torch.tensor(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        train_cli.main(base + ["--mesh"])
+    # --mesh with no process group configured: a world of one
+    meshed = train_cli.main([a.replace(str(log), str(tmp_path / "mesh")) for a in base]
+                            + ["--mesh", "--set", "train.max_epoch=1"])
+    assert meshed.mesh.shape == {"data": 1, "db": 1} and meshed.state.step == steps2 // 2
 
 
 def test_cli_distill_from_teacher_checkpoint(tmp_path, synthetic_root):
