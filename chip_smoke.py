@@ -107,6 +107,22 @@ plain one, and ``cli/train.py --mesh`` for two steps; and which raw
 collectives gloo runs on CUDA tensors (each must include
 ``collectives.GLOO_CUDA_OPS``).
 
+Then, counts zeroed before each phase: "benchmark cli" runs
+``cli/benchmark.py --json`` at B=32, N=4096 (K2 and K1 must launch; K2's
+ids equal ``knn_plain``'s on the CLI's clouds); "train quality" runs (a)
+the CI-scale quality band (``scripts/multiseed.ci_run``: 3 runs x 40
+submaps x 256 points, difficulty 0.5, the tiny model, 6 epochs) on the
+card, seed 1234 before and after training and the seeds 1234, 7 and 2024,
+held to ``multiseed.CI_BAND`` (seed 1234's two loss curves compared and
+reported), and (b) seed 1234's full-width teacher of the difficulty-0.5
+protocol through the CLIs (``multiseed.run``: 5 x 80 x 4096, 15 epochs,
+lr 2e-4, mining from epoch 5), recall@1 held to ``multiseed.BAND``'s
+teacher floor (JAX's 92.48% less 5 points), K1 counted by train steps,
+mining and evaluation; "compile cache" runs ``cli/benchmark.py`` in a
+process with ``--compilation_cache_dir`` a fresh directory (K1's and K2's
+libraries built there) and again in a process with no nvcc to find, which
+loads them from there.
+
 Output: progress lines with each phase's seconds, then a ``{"kernels":
 [...]}`` line, timing lines, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -135,7 +151,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from epcnet_torch.cli import convert, evaluate, export, generate_tuples, train
+from epcnet_torch.cli import benchmark, convert, evaluate, export, generate_tuples, train
 from epcnet_torch.cli import serve as serve_cli
 from epcnet_torch.configs import (
     DataConfig,
@@ -153,12 +169,12 @@ from epcnet_torch.models.vlad_head import compute_dtype
 from epcnet_torch.ops import _build, adjacency, knn, knn_phases, sampling
 from epcnet_torch.ops.matmul import matmul_f32acc
 from epcnet_torch.parallel.collectives import GLOO_CUDA_OPS
-from epcnet_torch.scripts import knn_trace, multidevice, serve_scale, train_bench
+from epcnet_torch.scripts import knn_trace, multidevice, multiseed, serve_scale, train_bench
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.mining import MiningCache
 from epcnet_torch.train.state import create_train_state
 from epcnet_torch.train.step import build_distill_step, build_embed_fn, build_train_step, to_device
-from epcnet_torch.utils import importer
+from epcnet_torch.utils import compile_cache, importer
 from epcnet_torch.utils.timing import cuda_ms
 from epcnet_torch.weights import (
     flat_grads,
@@ -215,6 +231,26 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+@contextlib.contextmanager
+def k1_inside(owner, attr: str, tally: list):
+    """While the block runs, ``owner.attr`` adds the K1 launches made inside
+    each of its calls to ``tally[0]``."""
+    real = getattr(owner, attr)
+
+    def counted(*args, **kwargs):
+        before = read_counts()["K1"]
+        try:
+            return real(*args, **kwargs)
+        finally:
+            tally[0] += read_counts()["K1"] - before
+
+    setattr(owner, attr, counted)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, real)
 
 
 class Phase:
@@ -786,15 +822,7 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
                 "--device", dev.type]
         args += [a for kv in sets for a in ("--set", kv)]
         mining_k1 = [0]
-        real_refresh = MiningCache.refresh
-
-        def counted_refresh(self, model, group=None):
-            before = read_counts()["K1"]
-            real_refresh(self, model, group)
-            mining_k1[0] += read_counts()["K1"] - before
-
-        MiningCache.refresh = counted_refresh
-        try:
+        with k1_inside(MiningCache, "refresh", mining_k1):
             zero_counts()
             tr = train.main(args)
             first = read_counts()
@@ -803,8 +831,6 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
             with contextlib.redirect_stdout(buf):
                 tr2 = train.main(args + ["--restore", "--set", "train.max_epoch=3"])
             resumed = read_counts()
-        finally:
-            MiningCache.refresh = real_refresh
         text = buf.getvalue()
         print(text, end="")
         assert f"restored at step {steps}" in text, text
@@ -1211,6 +1237,136 @@ def multi_device_phases(dev, cfg: ModelConfig, flat: dict, embed, sub: np.ndarra
     return {"retrieval": ret, "gloo": gl, "nccl": nc, "gloo_cuda_ops": ops}, counts
 
 
+def benchmark_cli_phase(dev, n: int) -> tuple[dict, dict]:
+    """``cli/benchmark.py --json`` at its defaults (B=32, N=4096), counts
+    zeroed: K2 (its kNN) and K1 (its embed) must launch, and K2's ids equal
+    the plain version's on the CLI's clouds. Returns (its line, counts)."""
+    with Phase("benchmark cli"):
+        zero_counts()
+        line = benchmark.main(["--json"])  # prints its line
+        counts = read_counts()
+        assert counts["K2"] >= 1 and counts["K1"] >= 1, counts
+        assert line["num_points"] == n and line["batch"] == 32, line
+        assert all(np.isfinite(v) and v > 0 for k, v in line.items() if k.endswith("_ms")), line
+        xb = benchmark.clouds(np.random.default_rng(0), 32, n, dev)  # the CLI's clouds
+        ids, d = knn.knn_cuda(xb, benchmark.KNN_K, return_dists=True)
+        ids_p, d_p = knn.knn_plain(xb, benchmark.KNN_K, return_dists=True)
+        assert torch.equal(ids, ids_p) and torch.equal(d, d_p)
+        del xb, ids, d, ids_p, d_p
+        torch.cuda.empty_cache()
+    log(f"phase benchmark cli: K2 ids equal to knn_plain's at B=32, N={n}; embed "
+        f"{line['embed_device_ms']:.3f} ms device, {line['submaps_per_sec_device']:.1f} "
+        f"submaps/s; launches {counts}")
+    return line, counts
+
+
+def train_quality_phase(dev, tmp: str) -> tuple[dict, dict]:
+    """(a) the CI-scale band (``multiseed.ci_run``) on the card: seed 1234
+    before and after training, then the seeds (1234, 7, 2024), held to
+    ``multiseed.CI_BAND``, seed 1234's two loss curves compared; (b) seed
+    1234's full-width teacher (``multiseed.run``, the protocol's 15 epochs)
+    through the CLIs, recall@1 held to ``multiseed.BAND``, K1 counted by train
+    steps, mining and evaluation. Returns (its line, counts)."""
+    res, counts = {}, {}
+    with Phase("train quality ci"):
+        root = multiseed.ci_dataset(os.path.join(tmp, "ci_data"))
+        zero_counts()
+        first = multiseed.ci_run(root, 1234, os.path.join(tmp, "ci_first"), dev.type,
+                                 untrained=True)
+        runs = {s: multiseed.ci_run(root, s, os.path.join(tmp, f"ci_{s}"), dev.type)
+                for s in multiseed.CI_SEEDS}
+        counts["train quality ci"] = read_counts()
+        recalls = {s: r["trained"] for s, r in runs.items()}
+        bad = multiseed.ci_band_failures(first["untrained"], first["trained"], recalls)
+        assert not bad, bad
+        assert counts["train quality ci"]["K1"] >= 1, counts
+        a, b = np.array(first["loss"]), np.array(runs[1234]["loss"])
+        res["ci"] = {"untrained": first["untrained"], "trained_first": first["trained"],
+                     "recall_by_seed": recalls,
+                     "loss_by_epoch": {s: [float(np.mean(r["loss"][i:j])) for i, j in
+                                           zip([0] + r["epoch_ends"][:-1], r["epoch_ends"])]
+                                       for s, r in runs.items()},
+                     "seed1234_rerun_loss_equal": bool(np.array_equal(a, b)),
+                     "seed1234_rerun_loss_max_gap": float(np.abs(a - b).max()),
+                     "seed1234_rerun_first_unequal_step": (
+                         int(np.argmax(a != b)) if not np.array_equal(a, b) else None),
+                     "seed1234_rerun_recall": [first["trained"], runs[1234]["trained"]]}
+    log(f"phase train quality ci: untrained {first['untrained']:.4f}, trained "
+        f"{first['trained']:.4f}; by seed {recalls} (band {multiseed.CI_BAND}); seed 1234 "
+        f"twice: losses equal {res['ci']['seed1234_rerun_loss_equal']}")
+
+    with Phase("train quality teacher"):
+        mining_k1, eval_k1 = [0], [0]
+        with k1_inside(MiningCache, "refresh", mining_k1), \
+                k1_inside(evaluate, "main", eval_k1):
+            zero_counts()
+            out = multiseed.run(os.path.join(tmp, "teacher"), seeds=(1234,),
+                                device=dev.type, teacher_only=True,
+                                pointnetvlad=False)
+            counts["train quality teacher"] = read_counts()
+        with open(os.path.join(tmp, "teacher", "s1234", "log", "export.json")) as f:
+            steps = json.load(f)["step"]
+        k1 = counts["train quality teacher"]["K1"]
+        train_k1 = k1 - mining_k1[0] - eval_k1[0]
+        assert train_k1 == steps, (train_k1, steps, mining_k1, eval_k1)
+        assert mining_k1[0] >= 1 and eval_k1[0] >= 1, (mining_k1, eval_k1)
+        r1 = out["seeds"][0]["teacher_recall1"]
+        assert r1 >= multiseed.BAND["teacher_floor"], (r1, multiseed.BAND)
+        res["teacher"] = {"epochs": out["epochs"], "recall_at_1": r1, "steps": steps,
+                          "untrained_recall_at_1": out["untrained"]["recall1"],
+                          "seconds": out["seeds"][0]["seconds"],
+                          "k1_launches": {"train_steps": train_k1, "mining": mining_k1[0],
+                                          "eval": eval_k1[0]},
+                          "peak_memory_bytes": out["peak_memory_bytes"],
+                          "tensorboard_mirrors": out["tensorboard_mirrors"]}
+        torch.cuda.empty_cache()
+    log(f"phase train quality teacher: seed 1234, {out['epochs']} epochs, {steps} steps, "
+        f"recall@1 {r1:.4f} (floor {multiseed.BAND['teacher_floor']:.4f}); K1 launches "
+        f"{res['teacher']['k1_launches']}")
+    return res, counts
+
+
+def compile_cache_phase(tmp: str) -> dict:
+    """``cli/benchmark.py`` (K1 and K2) in a process of its own with
+    ``--compilation_cache_dir`` a fresh directory: the two libraries are
+    built there, by their content-addressed names; a second process with no
+    nvcc to find (``CUDA_HOME`` empty, ``PATH`` without it) loads them
+    from there and builds nothing."""
+    cache = os.path.join(tmp, "kernel_cache")
+    argv = [sys.executable, "-m", "epcnet_torch.cli.benchmark", "--json", "--batch", "2",
+            "--iters", "2", "--db_size", "64", "--compilation_cache_dir", cache]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with Phase("compile cache"):
+        t0 = time.perf_counter()
+        first = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600)
+        build_s = time.perf_counter() - t0
+        assert first.returncode == 0, first.stderr[-3000:]
+        real_dir = _build.BUILD_DIR
+        try:
+            compile_cache.enable_compilation_cache(cache)
+            want = sorted(_build._target(name)[1].name for name in ("knn_adj", "knn_ids"))
+        finally:
+            _build.BUILD_DIR = real_dir
+        built = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
+        assert sorted(built) == want, (sorted(built), want)
+        env = {**os.environ, "CUDA_HOME": os.path.join(tmp, "no_cuda"),
+               "PATH": os.pathsep.join(p for p in os.environ.get("PATH", "").split(os.pathsep)
+                                       if not os.path.isfile(os.path.join(p, "nvcc")))}
+        t0 = time.perf_counter()
+        second = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600,
+                                env=env)
+        load_s = time.perf_counter() - t0
+        assert second.returncode == 0, second.stderr[-3000:]
+        after = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
+        assert after == built, (after, built)
+        line = json.loads(second.stdout.strip().splitlines()[-1])
+        assert line["knn_cuda_ms"] > 0 and line["embed_device_ms"] > 0, line
+    res = {"built": want, "first_process_s": build_s, "second_process_s": load_s}
+    log(f"phase compile cache: {want} built in {cache} ({build_s:.1f} s process), loaded by "
+        f"a process with no nvcc ({load_s:.1f} s)")
+    return res
+
+
 def spill_bytes(report: str) -> dict:
     """{kernel: spill store + load bytes} from a ptxas -v report."""
     out, name = {}, None
@@ -1608,13 +1764,20 @@ def main() -> int:
     # -- 10d. the multi-device paths, launch counts zeroed before each ------
     md, md_counts = multi_device_phases(dev, cfg, flat, embed, sub)
 
+    # -- 10e. the benchmark CLI, training quality, the compile cache -------
+    bench_cli, bench_cli_counts = benchmark_cli_phase(dev, n)
+    with tempfile.TemporaryDirectory(prefix="epcnet_quality_") as tmp:
+        quality, quality_counts = train_quality_phase(dev, tmp)
+        cache = compile_cache_phase(tmp)
+
     # -- 11. timings, at the shapes the serving paths give each kernel -----
     with Phase("timings"):
         kernels = []
 
         path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
                        **served["counts"], "evaluate": eval_counts, "knn trace": trace_counts,
-                       **train_counts, **md_counts}
+                       **train_counts, **md_counts, "benchmark cli": bench_cli_counts,
+                       **quality_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
                   shape, counter, **extra):
@@ -1806,6 +1969,9 @@ def main() -> int:
     log(json.dumps({"train": trained}))
     log(json.dumps({"train_bench": bench}))
     log(json.dumps({"multi_device": md}, default=str))
+    log(json.dumps({"benchmark_cli": bench_cli}))
+    log(json.dumps({"train_quality": quality}))
+    log(json.dumps({"compile_cache": cache}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

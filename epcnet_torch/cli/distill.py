@@ -8,7 +8,7 @@ JSONL metrics.
 
   python -m epcnet_torch.cli.distill --dataset_root D --teacher_log_dir log \\
       [--alpha 1.0] [--log_dir log_student] [--restore] [--mesh] [--synthetic]
-      [--device cpu]
+      [--device cpu] [--compilation_cache_dir D]
 
 The teacher's weights come from its export pair ``<teacher_log_dir>/export``
 (written by either package's ``cli/export.py``) when there is one, else from
@@ -34,6 +34,7 @@ from epcnet_torch.parallel.mesh import is_primary
 from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.train.step import build_distill_step
 from epcnet_torch.train.trainer import Trainer
+from epcnet_torch.utils.compile_cache import add_cli_arg, enable_compilation_cache
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.weights import load_export, load_flat_variables
 
@@ -68,7 +69,9 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--mesh", action="store_true", help="data-parallel over devices")
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_cli_arg(ap)
     args = ap.parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir)
     maybe_initialize_distributed(device=args.device)  # before any CUDA work
     device = resolve_device(args.device)
 

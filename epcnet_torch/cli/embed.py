@@ -4,6 +4,7 @@ cloud files in, global descriptors out.
   python -m epcnet_torch.cli.embed --log_dir log --output descs.npy \\
       cloud0.bin cloud1.npy ... [--batch_size 32] [--dataset_root R]
       [--points_sharded [--pad_multiple 512]] [--device cpu]
+      [--compilation_cache_dir D]
 
 Inputs (by extension): ``.bin``, raw float64 xyz with N taken from the file
 size; ``.npy``, a float array [N, 3]. Every cloud must have exactly
@@ -36,6 +37,7 @@ from epcnet_torch.data.pointclouds import load_pc_file
 from epcnet_torch.models.points_sharded import embed_points_sharded
 from epcnet_torch.parallel import ProcessMesh, maybe_initialize_distributed
 from epcnet_torch.parallel.mesh import is_primary
+from epcnet_torch.utils.compile_cache import add_cli_arg, enable_compilation_cache
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.weights import flat_variables
 
@@ -69,7 +71,9 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--pad_multiple", type=int, default=512,
                     help="points-sharded: pad each cloud to a multiple of this (per rank)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_cli_arg(ap)
     args = ap.parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir)
     if args.points_sharded:
         maybe_initialize_distributed(device=args.device)  # before any CUDA work
 

@@ -5,6 +5,7 @@ region's database and query runs and writes the recall table to
   python -m epcnet_torch.cli.evaluate --dataset_root D --log_dir log
       [--regions oxford university ...] [--latency_probe] [--quantize int8]
       [--database_pickle db.pickle --query_pickle q.pickle] [--mesh] [--device cpu]
+      [--compilation_cache_dir D]
 
 Weights and config come from the ``<log_dir>/export`` pair
 (``python -m epcnet_tpu.cli.export`` or ``weights.save_export``), not from
@@ -12,10 +13,10 @@ an Orbax checkpoint; ``--config`` replaces the pair's config, and
 ``--dataset_root`` and ``--set`` apply on top. The model runs on the card
 unless ``--device cpu`` is given. ``--mesh`` shards retrieval over the
 visible devices (one slice onto the "db" axis unless the config's mesh
-sets one; ``parallel.retrieval_db_axis``). The JAX CLI's
-``--compilation_cache_dir`` has no counterpart (eager PyTorch compiles
-nothing per shape; the kernels' builds are cached under
-``epcnet_torch/csrc/build``).
+sets one; ``parallel.retrieval_db_axis``). ``--compilation_cache_dir``
+(else ``$EPCNET_COMPILATION_CACHE_DIR``, else ``epcnet_torch/csrc/build``)
+is where the CUDA kernels are built and found again
+(``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from epcnet_torch.parallel import (
     retrieval_db_axis,
 )
 from epcnet_torch.train.step import build_embed_fn
+from epcnet_torch.utils.compile_cache import add_cli_arg, enable_compilation_cache
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.weights import load_export
 
@@ -96,7 +98,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--latency_probe", action="store_true")
     ap.add_argument("--output", default=None, help="default <log_dir>/results.txt")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_cli_arg(ap)
     args = ap.parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir)
     if bool(args.database_pickle) != bool(args.query_pickle):
         ap.error("--database_pickle and --query_pickle must be given together")
     maybe_initialize_distributed(device=args.device)

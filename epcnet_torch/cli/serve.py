@@ -6,7 +6,7 @@
       [--db saved_index.npz] [--save_on_exit saved_index.npz]
       [--warmup_points 0|N] [--quantize none|int8]
       [--sync_mode blocking|background] [--sync_chunk_rows R]
-      [--mesh [--db_axis D]] [--device cpu]
+      [--mesh [--db_axis D]] [--device cpu] [--compilation_cache_dir D]
 
 Weights: the latest port checkpoint under ``<log_dir>/ckpt``
 (``PlaceIndex.from_checkpoint``: a port training run, or ``cli/convert.py``'s
@@ -14,10 +14,10 @@ output); where there is none, the ``<log_dir>/export`` pair (how weights the
 JAX package trained reach the port, as ``cli/evaluate.py`` reads them). It
 raises when the directory holds neither. The model runs on the card unless
 ``--device cpu`` is given. ``--mesh`` shards the device DB over the visible
-devices (``--db_axis`` of them, default one slice);
-the JAX CLI's ``--compilation_cache_dir`` has no counterpart (eager PyTorch
-compiles nothing per shape; the kernels' builds are cached under
-``epcnet_torch/csrc/build``).
+devices (``--db_axis`` of them, default one slice).
+``--compilation_cache_dir`` (else ``$EPCNET_COMPILATION_CACHE_DIR``, else
+``epcnet_torch/csrc/build``) is where the CUDA kernels are built and found
+again (``utils/compile_cache.py``).
 
 Startup runs one padded embed + query on zeros (``--warmup_points``,
 default the run's ``data.num_points``) BEFORE binding the port: on the card
@@ -64,6 +64,7 @@ from epcnet_torch.parallel import (
 )
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.checkpoint import CheckpointManager
+from epcnet_torch.utils.compile_cache import add_cli_arg, enable_compilation_cache
 from epcnet_torch.utils.logging import log_string
 
 
@@ -203,7 +204,9 @@ def main(argv=None):
     ap.add_argument("--sync_chunk_rows", type=int, default=None,
                     help="rows per device-sync chunk (default 8*block_rows)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_cli_arg(ap)
     args = ap.parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir)
     maybe_initialize_distributed(device=args.device)
     device = resolve_device(args.device)  # before any work: no card, no server
 

@@ -4,6 +4,7 @@
       [--set train.learning_rate=1e-4 --set model.knn_k=20 ...]
       [--tuples_pickle P] [--log_dir log] [--restore] [--synthetic]
       [--profile_dir dir] [--eval_every_epochs N] [--mesh] [--device cpu]
+      [--compilation_cache_dir D]
 
 Writes ``<log_dir>/config.json``, ``<log_dir>/train.jsonl`` and the port's
 checkpoints under ``<log_dir>/ckpt`` (``train/checkpoint.py``);
@@ -13,9 +14,9 @@ unless ``--device cpu`` is given. ``--mesh`` trains data-parallel over the
 ranks of a process group (one process a rank, set up from the
 ``EPCNET_*`` variables by ``parallel.maybe_initialize_distributed``: NCCL
 on the cards, gloo with ``--device cpu``; without them a world of one),
-BatchNorm over the global batch; rank 0 logs and writes. The JAX CLI's
-``--compilation_cache_dir`` has no counterpart (eager PyTorch compiles
-nothing per shape).
+BatchNorm over the global batch; rank 0 logs and writes.
+``--compilation_cache_dir`` (else ``$EPCNET_COMPILATION_CACHE_DIR``) is
+where the CUDA kernels are built and found again (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from epcnet_torch.parallel import PreemptionGuard, ProcessMesh, maybe_initialize
 from epcnet_torch.parallel.collectives import barrier
 from epcnet_torch.parallel.mesh import is_primary
 from epcnet_torch.train.trainer import Trainer
+from epcnet_torch.utils.compile_cache import add_cli_arg, enable_compilation_cache
 from epcnet_torch.utils.logging import log_string
 from epcnet_torch.utils.profiling import start_trace
 
@@ -83,7 +85,9 @@ def main(argv=None) -> Trainer:
                     help="evaluate recall@1 on the dataset's test sets every N epochs and "
                     "keep the BEST checkpoint in <log_dir>/ckpt_best; 0 = off")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    add_cli_arg(ap)
     args = ap.parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir)
     # the process group first, before any CUDA work (a no-op when nothing is set)
     maybe_initialize_distributed(device=args.device)
     device = resolve_device(args.device)  # before any work: no card, no run

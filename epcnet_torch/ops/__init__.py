@@ -5,6 +5,7 @@ tensor the kernel, with no fallback between them."""
 from epcnet_torch.ops.adjacency import (
     count_adjacency,
     gather_neighbor_mean,
+    mean_adjacency,
     neighbor_mean,
     pack_indicator,
     packed_neighbor_mean,
@@ -19,8 +20,20 @@ from epcnet_torch.ops.retrieval import (
     l2_distance_matrix,
     quantize_descriptors,
     quantized_distance_matrix,
+    ring_knn_points,
+    ring_topk_neighbors,
+    sharded_topk_neighbors,
     topk_neighbors,
     topk_neighbors_quantized,
+)
+from epcnet_torch.ops.sampling import (
+    ball_query,
+    farthest_point_sample,
+    gather_point,
+    group_point,
+    prob_sample,
+    three_interpolate,
+    three_nn,
 )
 from epcnet_torch.ops.vlad import vlad_aggregate
 
@@ -31,14 +44,25 @@ __all__ = [
     "knn_adjacency",
     "knn_adjacency_plain",
     "count_adjacency",
+    "mean_adjacency",
     "neighbor_mean",
     "pack_indicator",
     "unpack_indicator",
     "packed_neighbor_mean",
     "gather_neighbor_mean",
     "vlad_aggregate",
+    "farthest_point_sample",
+    "gather_point",
+    "prob_sample",
+    "ball_query",
+    "group_point",
+    "three_nn",
+    "three_interpolate",
     "l2_distance_matrix",
     "topk_neighbors",
+    "sharded_topk_neighbors",
+    "ring_topk_neighbors",
+    "ring_knn_points",
     "quantize_descriptors",
     "dequantize_descriptors",
     "quantized_distance_matrix",

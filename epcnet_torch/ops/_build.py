@@ -7,8 +7,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own:
 
 at first use, from the sources in the checkout only. The library name holds
 a hash of the source and of the shared headers (``csrc/*.cuh``), so an
-edited kernel is never served from a stale build; the output directory is
-listed in ``.gitignore``. ``-fmad=false``
+edited kernel is never served from a stale build, and it is written under a
+temporary name and renamed, so processes may share the directory. The
+directory is ``BUILD_DIR``, read at each build: ``csrc/build`` (listed in
+``.gitignore``) unless ``utils/compile_cache.py`` points it elsewhere
+(``--compilation_cache_dir``). ``-fmad=false``
 keeps every product and sum separately rounded, which is what makes the kNN
 distances bit-equal to the plain PyTorch version (the kernels also spell it
 out with ``__fmul_rn``/``__fadd_rn``).
@@ -28,6 +31,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# where builds go and are looked up; utils/compile_cache.py may repoint it
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

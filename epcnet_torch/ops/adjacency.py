@@ -29,6 +29,15 @@ from epcnet_torch.ops.matmul import matmul_f32acc
 _PLANES = 32
 
 
+def mean_adjacency(idx: torch.Tensor, n: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense row-normalised adjacency [..., N, n] from kNN ids [..., N, K]:
+    entry [i, j] is how often j occurs in row i's list, over K (duplicates
+    counted with multiplicity), computed in fp32 and cast to ``dtype`` — the
+    JAX ``mean_adjacency``. On no model path; it runs on ``idx``'s device."""
+    k = idx.shape[-1]
+    return (count_adjacency(idx, n, torch.float32) / float(k)).to(dtype)
+
+
 def count_adjacency(idx: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
     """Unnormalised adjacency counts: entry [..., i, j] is how often j occurs
     in row i's neighbour list — a scatter of ones. kNN indices are distinct,

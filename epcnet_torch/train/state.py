@@ -20,7 +20,7 @@ from torch import nn
 
 from epcnet_torch.configs import ModelConfig, TrainConfig
 from epcnet_torch.models import get_model
-from epcnet_torch.weights import init_flat_variables, load_flat_variables
+from epcnet_torch.weights import init_train_variables, load_flat_variables
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -88,9 +88,9 @@ def create_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig,
                        variables=None) -> TrainState:
     """A fresh state on ``device`` (the card unless ``"cpu"``): the model
     ``model_cfg.name`` names, with ``variables`` (a ``flatten_variables``
-    dict) or ``init_flat_variables(model_cfg, train_cfg.seed)``, and its
-    optimiser."""
+    dict) or ``init_train_variables(model_cfg, train_cfg.seed)`` (the JAX
+    model's initializers), and its optimiser."""
     model = get_model(model_cfg, device)
     load_flat_variables(model, variables if variables is not None
-                        else init_flat_variables(model_cfg, train_cfg.seed))
+                        else init_train_variables(model_cfg, train_cfg.seed))
     return TrainState(model=model, optimizer=make_optimizer(train_cfg, model.parameters()))

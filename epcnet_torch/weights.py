@@ -134,6 +134,19 @@ def save_export(basename: str, cfg: ExperimentConfig, flat: Mapping[str, np.ndar
         json.dump(manifest, f, indent=1)
 
 
+def _flat_leaves(cfg: ModelConfig):
+    """(state_dict key, flat name, flat shape) of every leaf of the model
+    ``cfg.name`` names, parameters then buffers, built on no device."""
+    from epcnet_torch.models import model_class
+
+    with torch.device("meta"):
+        model = model_class(cfg)(cfg)
+    buffers = {k for k, _ in model.named_buffers()}
+    for key, t in list(model.named_parameters()) + list(model.named_buffers()):
+        name, transpose = _to_flat_name(key, key in buffers)
+        yield key, name, tuple(t.shape[::-1]) if transpose else tuple(t.shape)
+
+
 def init_flat_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
     """Random weights for ``cfg`` in the flat naming, from a numpy seed; the
     layout of names and shapes is that of the model ``cfg.name`` names.
@@ -149,17 +162,10 @@ def init_flat_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray
     does real work in every check. A T-Net's ``transform_w`` is N(0,
     (0.1/16)²) and its ``transform_b`` the identity plus N(0, 0.05²), so
     each transform moves the points by ~0.1-0.2 of their scale."""
-    from epcnet_torch.models import model_class
-
-    with torch.device("meta"):
-        model = model_class(cfg)(cfg)
     rng = np.random.default_rng(seed)
-    buffers = {k for k, _ in model.named_buffers()}
     head = ("gvlad.", "netvlad.")
     flat = {}
-    for key, t in list(model.named_parameters()) + list(model.named_buffers()):
-        name, transpose = _to_flat_name(key, key in buffers)
-        shape = tuple(t.shape[::-1]) if transpose else tuple(t.shape)
+    for key, name, shape in _flat_leaves(cfg):
         leaf = key.rsplit(".", 1)[-1]
         if leaf == "weight":  # [in, out]
             gain = (10.0 if key.endswith("assign.weight") else
@@ -182,5 +188,50 @@ def init_flat_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray
             v = rng.uniform(0.5, 1.5, shape)
         else:  # Dense and grouped-FC biases
             v = rng.normal(0.0, 0.02, shape)
+        flat[name] = v.astype(np.float32)
+    return flat
+
+
+# flax's lecun_normal: a normal truncated to 2 standard deviations, scaled
+# back to variance 1 / fan_in (the std of the truncated unit normal)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal(rng: np.random.Generator, shape: tuple, fan_in: int) -> np.ndarray:
+    z = rng.standard_normal(shape)
+    out = np.abs(z) > 2.0
+    while out.any():
+        z[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(z) > 2.0
+    return z * (np.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+def init_train_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
+    """Where training starts: the JAX model's initial weights in
+    distribution (flax's initializers), from a numpy seed, in the flat
+    naming of the model ``cfg.name`` names. Dense kernels are LeCun normal
+    (fan_in their input width; a grouped FC's [G, in, out] counts G x in, as
+    flax's variance scaling does), biases zero, BN scale 1, bias 0 and
+    running stats (0, 1), centroids normal with std 1/sqrt(D), and a T-Net
+    the identity (``transform_w`` zero). The values are not JAX's: its
+    init stream is ``jax.random``'s. ``init_flat_variables`` is the other
+    seeded init, the checks' (non-trivial BN, sharp VLAD assignment)."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, name, shape in _flat_leaves(cfg):
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight":  # [in, out]
+            v = _lecun_normal(rng, shape, shape[0])
+        elif key.endswith("group_w"):  # [G, in, out]
+            v = _lecun_normal(rng, shape, shape[0] * shape[1])
+        elif key.endswith("centroids"):
+            v = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
+        elif leaf == "transform_b":
+            dim = int(round(np.sqrt(shape[0])))
+            v = np.eye(dim).reshape(-1)
+        elif leaf in ("scale", "var"):
+            v = np.ones(shape)
+        else:  # biases, running means, transform_w
+            v = np.zeros(shape)
         flat[name] = v.astype(np.float32)
     return flat

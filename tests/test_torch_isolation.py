@@ -37,7 +37,7 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 57  # every submodule was imported
+    assert int(out.stdout.strip()) >= 60  # every submodule was imported
 
 
 def _imports(path):
@@ -61,7 +61,7 @@ def test_source_scan():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "epcnet_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 58  # chip_smoke.py and the package's 57 modules
+    assert len(files) >= 61  # chip_smoke.py and the package's 60 modules
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in FORBIDDEN + HOST_ONLY, (f, mod)
@@ -88,9 +88,10 @@ def test_configs_copy_in_step():
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import numpy as np
 
-    from epcnet_torch.cli import convert, distill, embed, evaluate, serve, train
+    from epcnet_torch.cli import benchmark, convert, distill, embed, evaluate, serve, train
     from epcnet_torch.evals import get_recall, retrieval_latency_probe
     from epcnet_torch.models import get_model
+    from epcnet_torch.scripts import multiseed
     from epcnet_torch.serve import PlaceIndex
     from epcnet_torch.train import Trainer, create_train_state
     from epcnet_torch.train.step import build_embed_fn
@@ -113,10 +114,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: Trainer(tcfg.ExperimentConfig(), None),
                  lambda: train.main(["--dataset_root", str(tmp_path)] + log),
                  lambda: distill.main(["--dataset_root", str(tmp_path),
-                                       "--teacher_log_dir", str(tmp_path)])):
+                                       "--teacher_log_dir", str(tmp_path)]),
+                 lambda: benchmark.main(["--json"]),
+                 lambda: multiseed.run(str(tmp_path / "ms"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert next(get_model(cfg, "cpu").parameters()).device.type == "cpu"
+    assert not (tmp_path / "ms").exists()  # refused before it wrote anything
 
 
 def test_multi_device_modules_stand_alone():

@@ -79,6 +79,45 @@ def test_count_adjacency_matches():
     np.testing.assert_array_equal(got, np.asarray(jadj.count_adjacency(jnp.asarray(idx), 300)))
 
 
+@pytest.mark.parametrize("n", [200, 300])  # JAX's direct route (n <= 256) and its hi/lo route
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mean_adjacency_bit_equal(dtype, n):
+    rng = np.random.RandomState(n)
+    idx = rng.randint(0, n, (2, n, 7)).astype(np.int32)
+    idx[:, :, 3] = idx[:, :, 1]  # duplicated ids: counted with multiplicity
+    want = jadj.mean_adjacency(jnp.asarray(idx), n, jnp.dtype(dtype))
+    got = tadj.mean_adjacency(_t(idx), n, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, n, n)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    dup = got.float().gather(-1, _t(idx[:, :, 1:2]).long())  # at least 2 of 7 in each row
+    assert bool((dup >= torch.tensor(2 / 7).to(got.dtype).float()).all())
+
+
+# JAX names whose port counterpart has another name; ``knn`` stays a name of
+# the submodule (``epcnet_torch/ops/__init__.py``)
+_RENAMED = {"knn_pallas": "knn.knn_cuda", "knn_jnp": "knn.knn_plain",
+            "knn_with_adjacency_pallas": "knn.knn_adjacency_cuda",
+            "vlad_aggregate_jnp": "vlad.vlad_aggregate", "knn": "knn.knn"}
+
+
+def test_every_jax_op_has_a_port_export():
+    import importlib
+
+    import epcnet_tpu.ops as jops
+
+    import epcnet_torch.ops as tops
+
+    for name in jops.__all__:
+        if name not in _RENAMED:
+            assert name in tops.__all__, name
+            continue
+        mod, attr = _RENAMED[name].split(".")
+        owner = importlib.import_module(f"epcnet_torch.ops.{mod}")
+        assert callable(getattr(owner, attr)), name
+    for name in tops.__all__:
+        assert callable(getattr(tops, name)), name
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_neighbor_mean_matches(dtype):
     rng = np.random.RandomState(6)

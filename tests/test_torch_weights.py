@@ -18,6 +18,7 @@ from epcnet_torch.models import get_model
 from epcnet_torch.serve import PlaceIndex
 from epcnet_torch.weights import (
     init_flat_variables,
+    init_train_variables,
     load_export,
     load_flat_variables,
     save_export,
@@ -57,6 +58,36 @@ def test_init_flat_variables_naming(name):
         dim = int(np.sqrt(b.size))
         assert 0 < np.abs(w).max() < 0.05 and w.shape == (256, dim * dim)
         assert 0 < np.abs(b - np.eye(dim).ravel()).max() < 0.3  # near the identity
+
+
+@pytest.mark.parametrize("name", ["epcnet", "epcnet_l", "pointnetvlad"])
+def test_init_train_variables_follow_jax_init(name):
+    """Training's init is JAX's ``model.init`` in distribution, leaf by leaf,
+    at the published widths: the constants (zero biases and running means,
+    unit BN scales and variances, the T-Nets' identity) equal, and every
+    random leaf of at least 512 entries with JAX's std to 10% and, where
+    JAX's is a LeCun normal truncated at 2 std, no entry beyond it."""
+    jc, tc = getattr(jcfg, _CONFIGS[name])(num_points=64), getattr(tcfg, _CONFIGS[name])(
+        num_points=64)
+    m = j_get_model(jc)
+    v = jax.jit(lambda: m.init(jax.random.PRNGKey(3), jnp.zeros((1, 64, 3)), train=False))()
+    want = flatten_variables(v["params"], v["batch_stats"])
+    got = init_train_variables(tc, seed=3)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == np.float32, k
+        if w.std() == 0:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        elif w.size >= 512:
+            assert abs(g.std() / w.std() - 1) < 0.1, (k, g.std(), w.std())
+            if k.endswith("kernel") or k.endswith("group_w"):  # fan_in: all but the last axis
+                bound = 2 * np.sqrt(1.0 / np.prod(w.shape[:-1])) / 0.87962566103423978
+                assert np.abs(w).max() <= bound * (1 + 1e-6), k  # JAX's truncation
+                assert np.abs(g).max() <= bound * (1 + 1e-6), k
+    again, other = init_train_variables(tc, seed=3), init_train_variables(tc, seed=4)
+    assert all(np.array_equal(got[k], again[k]) for k in got)
+    assert any(not np.array_equal(got[k], other[k]) for k in got)
 
 
 def test_save_export_roundtrip(tmp_path):
