@@ -89,6 +89,14 @@ train" (3 steps at lr 5e-5) and "distill" (10 steps, EPC-Net teacher,
 EPC-Net-L student; the mimic loss must fall). "train timings" runs
 ``scripts/train_bench.run``: ms a step, peak memory and the step's spans
 for the dense step, with remat, with accumulation over 2, and at N=32768.
+"capacity" runs a cut of ``scripts/capacity.py`` and
+``scripts/batch_sweep.py`` (``capacity_phase``): the training ladder at
+B = 2, 4 in its four memory configurations, one 22-cloud step at N=32768
+(gather), the embed ladder at N=16384 on the three routes and at N=262144
+on gather, and the batch sweep at B = 8, 32; every rung must fit and print
+its line, memory return after each, the routes agree and submap 0's
+descriptor not move with B, and the first rung's loss equal the plain
+twins' step's.
 
 Then the multi-device phase (``scripts/multidevice.py``), at full width:
 (a) one process over ``make_mesh(devices=[cuda:0, cuda:0])``: sharded and
@@ -169,7 +177,15 @@ from epcnet_torch.models.vlad_head import compute_dtype
 from epcnet_torch.ops import _build, adjacency, knn, knn_phases, sampling
 from epcnet_torch.ops.matmul import matmul_f32acc
 from epcnet_torch.parallel.collectives import GLOO_CUDA_OPS
-from epcnet_torch.scripts import knn_trace, multidevice, multiseed, serve_scale, train_bench
+from epcnet_torch.scripts import (
+    batch_sweep,
+    capacity,
+    knn_trace,
+    multidevice,
+    multiseed,
+    serve_scale,
+    train_bench,
+)
 from epcnet_torch.serve import PlaceIndex, QueryScheduler
 from epcnet_torch.train.mining import MiningCache
 from epcnet_torch.train.state import create_train_state
@@ -1237,6 +1253,64 @@ def multi_device_phases(dev, cfg: ModelConfig, flat: dict, embed, sub: np.ndarra
     return {"retrieval": ret, "gloo": gl, "nccl": nc, "gloo_cuda_ops": ops}, counts
 
 
+# the capacity phase's cut of scripts/capacity.py and scripts/batch_sweep.py
+CAP_LADDER = (2, 4)
+CAP_EMBED = tuple((16384, 2, fmt) for fmt in ("dense", "packed", "gather"))
+CAP_EMBED_PAST = (262144,)
+CAP_SWEEP = (8, 32)
+
+
+def capacity_phase(dev, cfg: ModelConfig) -> tuple[dict, dict]:
+    """A cut of the capacity ladders and the batch sweep, counts zeroed:
+    the training ladder at B = 2, 4 in each of the four memory
+    configurations, one giant rung (N=32768, 22 clouds, baseline, the
+    gather route), the embed ladder at (16384, B=2) on the three routes and
+    at (262144, B=1) on gather, and the batch sweep at B = 8, 32. Every rung
+    must fit (an out-of-memory row fails the run), every loss be finite,
+    memory return after each rung (``capacity.run_rung``), the routes agree
+    within ``ROUTE_TOL`` and the sweep's submap 0 within
+    ``batch_sweep.BATCH_TOL``; the first rung's loss (baseline, B=2) equals
+    the same step's on the plain twins' graph within ``TRAIN_TOL``. Every
+    rung prints its line. Returns (the results, counts)."""
+    n, k = cfg.num_points, cfg.knn_k
+    with Phase("capacity"):
+        zero_counts()
+        ladder = capacity.train_ladder(cfg, n, CAP_LADDER, capacity.CONFIGS, 2, dev)
+        giant = capacity.train_giant(cfg, (TRAIN_GATHER_N,), capacity.CONFIGS[:1], 2, dev)
+        emb, _ = capacity.embed_ladder(cfg, CAP_EMBED, CAP_EMBED_PAST, dev=dev)
+        sweep, _ = batch_sweep.sweep(cfg, CAP_SWEEP, dev=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rows = [r for c in ladder.values() for r in c["rows"]]
+        rows += [r for c in giant.values() for r in c["rows"]]
+        assert [[r["b"] for r in c["rows"]] for c in ladder.values()] == [
+            [2, 4], [2, 4], [2, 4], [4]], ladder
+        assert not any(r.get("oom") for r in rows + emb["rows"]), rows + emb["rows"]
+        assert all(np.isfinite(r["loss"]) and np.isfinite(r["loss_last"]) for r in rows), rows
+        assert all(r["finite"] for r in emb["rows"]), emb["rows"]
+        assert giant["baseline"]["rows"][0]["route"] == "gather", giant
+        assert emb["route_gap"][str(CAP_EMBED[0][0])] <= ROUTE_TOL, emb["route_gap"]
+        assert sweep["desc_gap"] <= batch_sweep.BATCH_TOL, sweep["desc_gap"]
+        assert counts["K1"] >= 1 and counts["K2"] >= 1, counts
+        # the first rung against the same step on the plain twins' graph
+        tc = TrainConfig(batch_num_queries=CAP_LADDER[0])
+        pst = create_train_state(cfg, tc, dev, variables=init_flat_variables(cfg, 0))
+        plain_graph(pst.model, k)
+        batch = train_bench.tuple_batch(capacity.SEED, CAP_LADDER[0], capacity.POS,
+                                        capacity.NEG, n)
+        loss_p = float(build_train_step(cfg, tc)(pst, batch)[1]["loss"])
+        loss_k = ladder["baseline"]["rows"][0]["loss"]
+        assert abs(loss_k - loss_p) <= TRAIN_TOL["loss"] * abs(loss_p), (loss_k, loss_p)
+        del pst
+        torch.cuda.empty_cache()
+    res = {"train_ladder": ladder, "giant": giant, "embed": emb, "batch_sweep": sweep,
+           "first_rung_loss": loss_k, "first_rung_loss_plain": loss_p}
+    log(f"phase capacity: {len(rows)} training rungs and {len(emb['rows'])} embed rungs fit; "
+        f"first rung loss {loss_k} (plain {loss_p}); route gap {emb['route_gap']} "
+        f"(tolerance {ROUTE_TOL}); batch sweep gap {sweep['desc_gap']}; launches {counts}")
+    return res, counts
+
+
 def benchmark_cli_phase(dev, n: int) -> tuple[dict, dict]:
     """``cli/benchmark.py --json`` at its defaults (B=32, N=4096), counts
     zeroed: K2 (its kNN) and K1 (its embed) must launch, and K2's ids equal
@@ -1760,6 +1834,7 @@ def main() -> int:
         bench = train_bench.run(dev, 10)
     log(f"phase train timings: dense {bench['dense']['ms_per_step']:.2f} ms a step, gather "
         f"{bench['gather']['ms_per_step']:.2f} ms")
+    cap, cap_path_counts = capacity_phase(dev, cfg)
 
     # -- 10d. the multi-device paths, launch counts zeroed before each ------
     md, md_counts = multi_device_phases(dev, cfg, flat, embed, sub)
@@ -1776,7 +1851,8 @@ def main() -> int:
 
         path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
                        **served["counts"], "evaluate": eval_counts, "knn trace": trace_counts,
-                       **train_counts, **md_counts, "benchmark cli": bench_cli_counts,
+                       **train_counts, "capacity": cap_path_counts, **md_counts,
+                       "benchmark cli": bench_cli_counts,
                        **quality_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
@@ -1968,6 +2044,7 @@ def main() -> int:
     log(json.dumps({"bf16_gemm_check": {**gaps, "tolerance": BF16_TOL}}))
     log(json.dumps({"train": trained}))
     log(json.dumps({"train_bench": bench}))
+    log(json.dumps({"capacity": cap}))
     log(json.dumps({"multi_device": md}, default=str))
     log(json.dumps({"benchmark_cli": bench_cli}))
     log(json.dumps({"train_quality": quality}))

@@ -72,16 +72,13 @@ import torch
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.device import resolve_device
 from epcnet_torch.ops.retrieval import topk_neighbors_plain, topk_neighbors_quantized_plain
-from epcnet_torch.scripts.train_bench import blob_submaps
+from epcnet_torch.scripts.train_bench import SMALL, blob_submaps
 from epcnet_torch.serve import PlaceIndex, QueryScheduler, _capacity
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.utils.timing import cuda_ms
 from epcnet_torch.weights import init_flat_variables
 
 K = 25
-SMALL = ModelConfig(num_points=256, knn_k=8, proxyconv_channels=(16, 16),
-                    lift_channels=(32, 64), feature_dim=64, vlad_clusters=8,
-                    vlad_groups=4, vlad_group_dim=16)
 
 
 def unit_rows(gen: torch.Generator, n: int, dim: int) -> np.ndarray:

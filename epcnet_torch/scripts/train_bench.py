@@ -59,6 +59,10 @@ from epcnet_torch.weights import init_flat_variables
 
 SPANS = ("train/forward", "train/backward", "train/bn_update", "train/optimizer",
          "epcnet/knn_graph")
+# the tiny model the scripts run on the CPU
+SMALL = ModelConfig(num_points=256, knn_k=8, proxyconv_channels=(16, 16),
+                    lift_channels=(32, 64), feature_dim=64, vlad_clusters=8, vlad_groups=4,
+                    vlad_group_dim=16)
 
 
 def blob_submaps(rng: np.random.Generator, count: int, n: int) -> np.ndarray:
@@ -84,7 +88,9 @@ def tuple_batch(seed: int, b: int, p: int, ng: int, n: int) -> dict:
             "negatives": clouds[:, 1 + p:1 + p + ng], "other_neg": clouds[:, -1]}
 
 
-def _ms(fn, reps: int, dev: torch.device) -> float:
+def mean_ms(fn, reps: int, dev: torch.device) -> float:
+    """Mean ms of ``reps`` calls of ``fn`` after a warm-up call: CUDA events
+    on the card (``cuda_ms``), the host clock on the CPU."""
     if dev.type == "cuda":
         return cuda_ms(fn, reps)
     fn()
@@ -111,7 +117,7 @@ def bench_step(cfg: ModelConfig, train_cfg: TrainConfig, batch: dict, steps: int
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-    ms = _ms(one, steps, dev)
+    ms = mean_ms(one, steps, dev)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with torch.profiler.profile(activities=activities) as prof:
@@ -182,10 +188,7 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         res = run(dev, args.steps)
     else:  # a tiny size: the plain versions on host clocks
-        small = ModelConfig(num_points=256, knn_k=8, proxyconv_channels=(16, 16),
-                            lift_channels=(32, 64), feature_dim=64, vlad_clusters=8,
-                            vlad_groups=4, vlad_group_dim=16)
-        res = run(dev, args.steps, n=256, n_gather=512, cfg=small)
+        res = run(dev, args.steps, n=256, n_gather=512, cfg=SMALL)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)

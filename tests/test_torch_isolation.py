@@ -37,7 +37,7 @@ def test_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 60  # every submodule was imported
+    assert int(out.stdout.strip()) >= 62  # every submodule was imported
 
 
 def _imports(path):
@@ -61,7 +61,7 @@ def test_source_scan():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "epcnet_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 61  # chip_smoke.py and the package's 60 modules
+    assert len(files) >= 63  # chip_smoke.py and the package's 62 modules
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in FORBIDDEN + HOST_ONLY, (f, mod)
@@ -91,7 +91,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from epcnet_torch.cli import benchmark, convert, distill, embed, evaluate, serve, train
     from epcnet_torch.evals import get_recall, retrieval_latency_probe
     from epcnet_torch.models import get_model
-    from epcnet_torch.scripts import multiseed
+    from epcnet_torch.scripts import batch_sweep, capacity, multiseed
     from epcnet_torch.serve import PlaceIndex
     from epcnet_torch.train import Trainer, create_train_state
     from epcnet_torch.train.step import build_embed_fn
@@ -116,11 +116,15 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: distill.main(["--dataset_root", str(tmp_path),
                                        "--teacher_log_dir", str(tmp_path)]),
                  lambda: benchmark.main(["--json"]),
-                 lambda: multiseed.run(str(tmp_path / "ms"))):
+                 lambda: multiseed.run(str(tmp_path / "ms")),
+                 lambda: capacity.train_ladder(cfg),
+                 lambda: capacity.main(["--out", str(tmp_path / "cap.json")]),
+                 lambda: batch_sweep.main(["--out", str(tmp_path / "bs.json")])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert next(get_model(cfg, "cpu").parameters()).device.type == "cpu"
-    assert not (tmp_path / "ms").exists()  # refused before it wrote anything
+    for written in ("ms", "cap.json", "bs.json"):  # refused before it wrote anything
+        assert not (tmp_path / written).exists(), written
 
 
 def test_multi_device_modules_stand_alone():
