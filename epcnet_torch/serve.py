@@ -62,6 +62,21 @@ time): an add costs its own rows, and no add copies the whole DB, as the
 add that grows a buffer grown by doubling would (at 10^6 fp32 rows a 1 GB
 copy into 2 GB of fresh pages, which held queries running beside it for
 tens of milliseconds on an H100 host).
+
+Tracing: each phase of a dispatch is a ``utils/profiling.py::profile_region``
+span, recorded only while a profiler of the calling thread runs (otherwise a
+``nullcontext``, about 1 us on the host): the scheduler's worker opens
+``serve/wait`` (blocked for a batch's first request), ``serve/collect`` (until
+the batch closes, full or at ``max_wait_ms``), ``serve/stack`` (grouping by
+shape and ``np.stack`` of one group) and ``serve/resolve`` (latencies and the
+futures); the index ``serve/snapshot`` (locks, sync policy, stream waits),
+``serve/upload`` (pad and copy to the device), ``serve/retrieve`` (the top-k)
+and ``serve/copy_back`` (results to the host), around the model's own
+``epcnet/*`` spans. No scheduler span encloses ``PlaceIndex.query``, so a
+profiler started and stopped inside it loses no span half-way. The
+scheduler's ``queue_wait_s`` counter (``QueryScheduler.metrics``), always on,
+is the one wait the worker's spans cannot see: from ``submit`` to the
+dispatch.
 """
 
 from __future__ import annotations
@@ -87,6 +102,7 @@ from epcnet_torch.ops.retrieval import (
 )
 from epcnet_torch.train.checkpoint import read_run_config, restore_model
 from epcnet_torch.train.step import build_embed_fn
+from epcnet_torch.utils.profiling import profile_region
 from epcnet_torch.weights import flat_variables, load_export
 
 # rows of one host segment (64 MB at dim 256); a full segment is never
@@ -215,9 +231,10 @@ class PlaceIndex:
     def _embed_padded(self, points: np.ndarray) -> torch.Tensor:
         """Descriptors of up to ``embed_batch`` submaps, on the device, for
         the batch padded to ``embed_batch``."""
-        pts = torch.from_numpy(_pad_rows(np.asarray(points, np.float32),
-                                         self.embed_batch))
-        return self._embed(pts.to(self.device))
+        with profile_region("serve/upload"):
+            pts = torch.from_numpy(_pad_rows(np.asarray(points, np.float32),
+                                             self.embed_batch)).to(self.device)
+        return self._embed(pts)
 
     def embed(self, points: np.ndarray) -> np.ndarray:
         """[B, N, 3] -> [B, dim] descriptors, in fixed ``embed_batch`` chunks
@@ -227,7 +244,9 @@ class PlaceIndex:
         bs = self.embed_batch
         for s in range(0, n, bs):
             chunk = points[s: s + bs]
-            out[s: s + len(chunk)] = self._embed_padded(chunk).cpu().numpy()[: len(chunk)]
+            desc = self._embed_padded(chunk)
+            with profile_region("serve/copy_back"):
+                out[s: s + len(chunk)] = desc.cpu().numpy()[: len(chunk)]
         return out
 
     def add(self, points: np.ndarray, metadata: Sequence | None = None) -> None:
@@ -289,7 +308,8 @@ class PlaceIndex:
             with torch.inference_mode():
                 desc = self._embed_padded(points)
                 idx, dist = self._retrieve(desc, dbj, scj, k_fused, rows)
-            return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
+            with profile_region("serve/copy_back"):
+                return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
         return self.query_descriptors(self.embed(points), k)
 
     def _snapshot_db(self, n_query_rows: int, k: int):
@@ -300,31 +320,32 @@ class PlaceIndex:
         "blocking": after a full sync (read-your-writes). "background": at
         once, against the resident prefix (the first query ever waits for
         chunk one)."""
-        with self._lock:
-            if self._n == 0:
-                raise ValueError("empty index")
-            if k < 1:
-                raise ValueError(f"k={k} must be >= 1")
-        if self.sync_mode == "blocking":
-            self._ensure_synced()
-        else:
-            self._kick_background_sync()
-        with self._lock:
-            while self._dev_rows == 0 or self._dev_db is None:
-                # nothing resident yet: the first chunk is the least a query
-                # can run against (one sync_chunk_rows transfer, not the backlog)
+        with profile_region("serve/snapshot"):
+            with self._lock:
+                if self._n == 0:
+                    raise ValueError("empty index")
+                if k < 1:
+                    raise ValueError(f"k={k} must be >= 1")
+            if self.sync_mode == "blocking":
+                self._ensure_synced()
+            else:
+                self._kick_background_sync()
+            with self._lock:
+                while self._dev_rows == 0 or self._dev_db is None:
+                    # nothing resident yet: the first chunk is the least a query
+                    # can run against (one sync_chunk_rows transfer, not the backlog)
+                    self._raise_sync_error()
+                    self._sync_cv.wait(timeout=1.0)
                 self._raise_sync_error()
-                self._sync_cv.wait(timeout=1.0)
-            self._raise_sync_error()
-            # clamp to the visible prefix: the far-padded tail keeps the
-            # top-kk of the prefix exact
-            kk = min(k, self._dev_rows)
-            self._counters["queries"] += 1
-            self._counters["query_rows"] += n_query_rows
-            dbj, scj, ready, rows = (self._dev_db, self._dev_scale, self._dev_ready,
-                                     self._dev_rows)
-        self._await(ready, dbj, scj)
-        return dbj, scj, kk, rows
+                # clamp to the visible prefix: the far-padded tail keeps the
+                # top-kk of the prefix exact
+                kk = min(k, self._dev_rows)
+                self._counters["queries"] += 1
+                self._counters["query_rows"] += n_query_rows
+                dbj, scj, ready, rows = (self._dev_db, self._dev_scale, self._dev_ready,
+                                         self._dev_rows)
+            self._await(ready, dbj, scj)
+            return dbj, scj, kk, rows
 
     def _await(self, ready, *tensors) -> None:
         """Order the caller's stream on each shard device after the sync
@@ -349,26 +370,29 @@ class PlaceIndex:
         dbj, scj, kk, rows = self._snapshot_db(desc.shape[0], k)
         n = desc.shape[0]
         # the query batch is padded to an embed_batch multiple (fixed shapes)
-        q = torch.from_numpy(_pad_rows(np.asarray(desc, np.float32),
-                                       self.embed_batch)).to(self.device)
+        with profile_region("serve/upload"):
+            q = torch.from_numpy(_pad_rows(np.asarray(desc, np.float32),
+                                           self.embed_batch)).to(self.device)
         # capacity-keyed top-k for k <= max_k, as on the fused path
         k_prog = min(self.max_k, _capacity(dbj)) if k <= self.max_k else kk
         with torch.inference_mode():
             idx, dist = self._retrieve(q, dbj, scj, k_prog, rows)
-        return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
+        with profile_region("serve/copy_back"):
+            return idx.cpu().numpy()[:n, :kk], dist.cpu().numpy()[:n, :kk]
 
     def _retrieve(self, q: torch.Tensor, dbj, scj, k_prog: int, rows: int):
         """The one dispatch point for descriptor retrieval (sharded vs int8
         vs fp32) over the first ``rows`` rows, shared by both query paths
         and warmup."""
-        if len(dbj) > 1:
-            nd = len(dbj)
-            # shard s holds global rows s, s + nd, ...: ceil((rows - s) / nd) of them
-            valid = [max(0, -(-(rows - s) // nd)) for s in range(nd)]
-            return topk_over_shards(q, dbj, k_prog, scj, n_valid=valid)
-        if self.quantize == "int8":
-            return topk_neighbors_quantized(q, dbj[0], scj[0], k_prog, n_valid=rows)
-        return topk_neighbors(q, dbj[0], k_prog, n_valid=rows)
+        with profile_region("serve/retrieve"):
+            if len(dbj) > 1:
+                nd = len(dbj)
+                # shard s holds global rows s, s + nd, ...: ceil((rows - s) / nd) of them
+                valid = [max(0, -(-(rows - s) // nd)) for s in range(nd)]
+                return topk_over_shards(q, dbj, k_prog, scj, n_valid=valid)
+            if self.quantize == "int8":
+                return topk_neighbors_quantized(q, dbj[0], scj[0], k_prog, n_valid=rows)
+            return topk_neighbors(q, dbj[0], k_prog, n_valid=rows)
 
     # ------------------------------------------------------------------
     def flush(self) -> None:
@@ -677,7 +701,7 @@ class QueryScheduler:
         self._stop = threading.Event()
         # written by the worker only; _lat_lock guards the deque, which
         # metrics() iterates
-        self._counters = {"requests": 0, "dispatches": 0, "errors": 0}
+        self._counters = {"requests": 0, "dispatches": 0, "errors": 0, "queue_wait_s": 0.0}
         self._recent_lat = collections.deque(maxlen=1024)
         self._lat_lock = threading.Lock()
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -691,44 +715,62 @@ class QueryScheduler:
         self._q.put((np.asarray(points), fut, time.perf_counter()))
         return fut
 
-    def _run(self):
+    def _first(self) -> list | None:
+        """A micro-batch's first request, as a list of one; None once the
+        scheduler stops."""
         while not self._stop.is_set():
             try:
-                batch = [self._q.get(timeout=0.1)]
+                return [self._q.get(timeout=0.1)]
             except queue.Empty:
-                continue
-            deadline = time.perf_counter() + self._max_wait
-            while len(batch) < self.max_batch:
-                left = deadline - time.perf_counter()
-                if left <= 0:
-                    break
-                try:
-                    batch.append(self._q.get(timeout=left))
-                except queue.Empty:
-                    break
+                pass
+        return None
+
+    def _run(self):
+        while True:
+            # spans are the worker's own; none encloses self.index.query, in
+            # which a profiler of this thread may start or stop
+            with profile_region("serve/wait"):
+                batch = self._first()
+            if batch is None:
+                return
+            with profile_region("serve/collect"):
+                deadline = time.perf_counter() + self._max_wait
+                while len(batch) < self.max_batch:
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        break
+                    try:
+                        batch.append(self._q.get(timeout=left))
+                    except queue.Empty:
+                        break
             # group by shape: one odd-sized request must not poison the
             # other callers' micro-batch
-            groups: dict = {}
-            for pts, fut, t0 in batch:
-                groups.setdefault(getattr(pts, "shape", None), []).append((pts, fut, t0))
-            for group in groups.values():
+            for shape in dict.fromkeys(getattr(r[0], "shape", None) for r in batch):
                 self._counters["dispatches"] += 1
-                self._counters["requests"] += len(group)
                 try:
-                    pts = np.stack([g[0] for g in group])
+                    with profile_region("serve/stack"):
+                        group = [r for r in batch if getattr(r[0], "shape", None) == shape]
+                        self._counters["requests"] += len(group)
+                        pts = np.stack([g[0] for g in group])
+                    start = time.perf_counter()
+                    self._counters["queue_wait_s"] += sum(start - t0 for _, _, t0 in group)
                     ids, dists = self.index.query(pts, self.k)
                     done = time.perf_counter()
-                    for i, (_, fut, t0) in enumerate(group):
-                        with self._lat_lock:
-                            self._recent_lat.append(done - t0)
-                        _resolve_future(fut.set_result, (ids[i], dists[i]))
+                    with profile_region("serve/resolve"):
+                        for i, (_, fut, t0) in enumerate(group):
+                            with self._lat_lock:
+                                self._recent_lat.append(done - t0)
+                            _resolve_future(fut.set_result, (ids[i], dists[i]))
                 except Exception as e:  # propagate to this group's callers only
                     self._counters["errors"] += len(group)
                     for _, fut, _t0 in group:
                         _resolve_future(fut.set_exception, e)
 
     def metrics(self) -> dict:
-        """Counters + recent-window latency percentiles."""
+        """Counters + recent-window latency percentiles. ``queue_wait_s``:
+        the sum over dispatched requests of the time from ``submit`` to the
+        start of their dispatch's ``PlaceIndex.query`` (``time.perf_counter``);
+        the mean wait is its change over the change of ``requests``."""
         c = dict(self._counters)
         with self._lat_lock:
             lat = sorted(self._recent_lat)

@@ -1,14 +1,20 @@
 """The port's PlaceIndex / QueryScheduler on the CPU, mirroring
 tests/test_serve.py (self-query, growth, empty, save/load, int8, fused vs
 two-step, scheduler), plus the ids of the JAX PlaceIndex on the same weights
-and clouds."""
+and clouds; and the serving path's spans, its queue-wait counter and the
+benchmark's readers of those spans."""
 
 import threading
+import time
+import types
 
 import jax
 import numpy as np
 import pytest
+import torch
 
+from bench_h100 import harness
+from bench_h100.trace import Stretch
 from epcnet_tpu.cli.export import flatten_variables
 from epcnet_tpu.configs import ModelConfig as JModelConfig
 from epcnet_tpu.configs import TrainConfig
@@ -244,3 +250,115 @@ def test_capacity_routes_serve_like_jax(jax_state, fmt):
     j_ids, _ = jx.query(pts, k=3)
     np.testing.assert_array_equal(t_ids, j_ids)
     np.testing.assert_array_equal(t_ids[:, 0], np.arange(8))
+
+
+DISPATCH = ["serve/wait", "serve/collect", "serve/stack", "serve/snapshot", "serve/upload",
+            "serve/retrieve", "serve/copy_back", "serve/resolve"]
+
+
+@pytest.fixture(scope="module")
+def traced(embed):
+    """Three one-request dispatches through a scheduler, the second traced
+    whole: the profiler starts in the worker thread inside the first
+    dispatch's ``PlaceIndex.query`` and stops inside the third's, as the
+    benchmark's serve stretch does. The stretch's ``Trace``."""
+    idx = PlaceIndex(embed, descriptor_dim=256, embed_batch=4, block_rows=32, device="cpu")
+    pts = _clouds(38, 3)
+    idx.add(pts)
+    stretch, calls, real = Stretch("cpu", 0, 0), [], idx.query
+
+    def query(points, k=25):
+        calls.append(len(points))
+        if len(calls) == 1:
+            stretch.start()
+        elif len(calls) == 3:
+            stretch.stop(2)
+        return real(points, k)
+
+    idx.query = query
+    sched = QueryScheduler(idx, k=2, max_wait_ms=1.0)
+    try:
+        for i in range(3):
+            assert sched.submit(pts[i]).result(timeout=120)[0][0] == i
+    finally:
+        sched.stop()
+    return stretch.trace
+
+
+def test_dispatch_records_each_span_once_in_order(traced):
+    serve = [(s, t, name) for s, t, name in sorted(traced.spans) if name.startswith("serve/")]
+    names = [name for _, _, name in serve]
+    first = names.index("serve/resolve")  # the first dispatch's, after the profiler started
+    assert names[:first + 1] == DISPATCH[3:]
+    assert names[first + 1:first + 1 + len(DISPATCH)] == DISPATCH
+    assert names[first + 1 + len(DISPATCH):] == DISPATCH[:3]  # stopped inside the third
+    for (_, end, _), (start, _, _) in zip(serve, serve[1:]):
+        assert end <= start  # one after another, none inside another
+    upload, retrieve = (next(s for s, _, n in serve[first + 1:] if n == name)
+                        for name in ("serve/upload", "serve/retrieve"))
+    model = [s for s, _, n in traced.spans if n.startswith("epcnet/") and upload < s < retrieve]
+    assert model  # the model's own spans, between the upload and the retrieval
+
+
+def test_serve_span_readers(traced):
+    """The benchmark's readers of the serve spans on a CPU profile: host
+    times read, device time (none on the CPU) does not."""
+    obs = types.SimpleNamespace(trace=traced, counters={}, model=None, params=None)
+    read = {name: harness.load_module("metrics", name).read(obs)
+            for name in ("serve.collect_ms", "serve.upload_ms", "serve.retrieve_ms")}
+    assert read["serve.collect_ms"] >= 0.9  # one request: the batch closes at max_wait_ms
+    assert read["serve.upload_ms"] > 0
+    assert read["serve.retrieve_ms"] is None
+    empty = types.SimpleNamespace(trace=None, counters={}, model=None, params=None)
+    for name in read:
+        assert harness.load_module("metrics", name).read(empty) is None
+
+
+def test_spans_cost_nothing_without_a_profiler(embed, monkeypatch):
+    called = []
+
+    def refuse(name):
+        called.append(name)
+        raise AssertionError(f"record_function({name!r}) with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    idx = PlaceIndex(embed, descriptor_dim=256, embed_batch=4, block_rows=32, device="cpu")
+    pts = _clouds(39, 6)
+    idx.add(pts)  # embed
+    assert idx.query(pts[:2], k=1)[0][:, 0].tolist() == [0, 1]
+    assert idx.query(pts, k=1)[0][:, 0].tolist() == list(range(6))  # embed, then retrieve
+    sched = QueryScheduler(idx, k=1, max_wait_ms=1.0)
+    try:
+        assert sched.submit(pts[3]).result(timeout=60)[0][0] == 3
+    finally:
+        sched.stop()
+    assert not called
+
+
+def test_queue_wait_counts_the_time_held_in_the_queue(embed):
+    idx = PlaceIndex(embed, descriptor_dim=256, embed_batch=4, block_rows=32, device="cpu")
+    pts = _clouds(40, 2)
+    idx.add(pts)
+    entered, gate, real = threading.Event(), threading.Event(), idx.query
+
+    def held(points, k=25):
+        entered.set()
+        assert gate.wait(60)
+        return real(points, k)
+
+    idx.query = held
+    sched = QueryScheduler(idx, k=1, max_wait_ms=1.0)
+    try:
+        first = sched.submit(pts[0])
+        assert entered.wait(60)  # the worker is inside the first dispatch
+        second = sched.submit(pts[1])
+        queued = time.perf_counter()
+        time.sleep(0.2)
+        released = time.perf_counter()
+        gate.set()
+        assert [f.result(timeout=60)[0][0] for f in (first, second)] == [0, 1]
+        m = sched.metrics()
+    finally:
+        sched.stop()
+    assert m["requests"] == 2 and m["dispatches"] == 2
+    assert m["queue_wait_s"] >= released - queued

@@ -159,7 +159,7 @@ def test_http_server_matches_jax(servers):
     assert got[0][0] == got[1][0] == 404 and "error" in got[1][1]
     (_, jm), (_, tm) = (_call(b, "/metrics") for b in servers)
     assert set(tm) == set(jm) == {"index", "scheduler"}
-    assert set(tm["scheduler"]) == set(jm["scheduler"])
+    assert set(tm["scheduler"]) == set(jm["scheduler"]) | {"queue_wait_s"}
     assert set(tm["index"]) <= set(jm["index"]) | {"dev_syncs"}
     assert tm["index"]["size"] == jm["index"]["size"] == 6
 
