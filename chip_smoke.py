@@ -5,9 +5,10 @@
 
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
-``knn_phase.cu``, K6 ``knn_pipelined.cu``; K1-K3, K5 and K6 on the tiled
-core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the ptxas report of every
-tiled kernel and of K4 must show no spill), holds each against its plain
+``knn_phase.cu``, K6 ``knn_pipelined.cu``, K7 ``indicator_mean.cu``; K1-K3,
+K5 and K6 on the tiled core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the
+ptxas report of every tiled kernel, of K4 and of K7 must show no spill),
+holds each against its plain
 PyTorch version on the card, builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
@@ -18,7 +19,9 @@ random weights, and serves it on each adjacency route:
   and at N=65536 the gather route (K2); an index takes 16 and 8 submaps.
 
 Every submap must retrieve itself at rank 0. Kernel launch counts are zeroed
-just before each serving run and read just after it. At N=32768 the three
+just before each serving run and read just after it; the dense route's
+serving forwards launch K7 three times a K1 (layers 1-3 read the int8
+indicator), and the training steps never. At N=32768 the three
 routes also run side by side on the same clouds and weights, and their
 descriptors must agree.
 
@@ -127,8 +130,8 @@ protocol through the CLIs (``multiseed.run``: 5 x 80 x 4096, 15 epochs,
 lr 2e-4, mining from epoch 5), recall@1 held to ``multiseed.BAND``'s
 teacher floor (JAX's 92.48% less 5 points), K1 counted by train steps,
 mining and evaluation; "compile cache" runs ``cli/benchmark.py`` in a
-process with ``--compilation_cache_dir`` a fresh directory (K1's and K2's
-libraries built there) and again in a process with no nvcc to find, which
+process with ``--compilation_cache_dir`` a fresh directory (K1's, K2's and
+K7's libraries built there) and again in a process with no nvcc to find, which
 loads them from there.
 
 Output: progress lines with each phase's seconds, then a ``{"kernels":
@@ -233,6 +236,7 @@ COUNTERS = {
     "K5 r>32": (knn_phases.knn_phase_cuda, "launches_rounds"),
     "K6": (knn_phases.knn_adjacency_pipelined_cuda, "launches"),
     "K6 k>32": (knn_phases.knn_adjacency_pipelined_cuda, "launches_rounds"),
+    "K7": (adjacency.indicator_neighbor_mean_cuda, "launches"),
 }
 
 
@@ -401,6 +405,30 @@ def check_k3(x, k, dtype, splits=(), sign_bit=True) -> float:
     return float(err.max())
 
 
+def check_k7(ind, c, dtype, seed) -> float:
+    """K7 against its plain version (the cast, then cuBLAS with an fp32
+    sum): bit-equal on features on a grid of 1/64, where any order of the
+    fp32 sum is exact; on random features within 1 bf16 ulp (bf16) plus
+    ~1e-6 of the mean of |F| over the row's set bytes. Returns the max abs
+    difference on the random features."""
+    gen = torch.Generator(device=ind.device).manual_seed(seed)
+    f = torch.randn(*ind.shape[:2], c, device=ind.device, generator=gen)
+    grid = (torch.round(f * 64) / 64).clamp(-4, 4).to(dtype)
+    got = adjacency.indicator_neighbor_mean_cuda(grid, ind, 20, dtype)
+    assert torch.equal(got, adjacency.indicator_neighbor_mean_plain(grid, ind, 20, dtype)), \
+        f"K7 differs from its plain version on the grid (C={c}, {dtype})"
+    f = f.to(dtype)
+    got = adjacency.indicator_neighbor_mean_cuda(f, ind, 20, dtype).float()
+    want = adjacency.indicator_neighbor_mean_plain(f, ind, 20, dtype).float()
+    scale = adjacency.indicator_neighbor_mean_plain(f.abs().float(), ind, 20,
+                                                    torch.float32)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = 1.01e-6 * scale + (bf16_spacing(want) if dtype == torch.bfloat16 else 0)
+    assert bool((err <= tol).all()), f"K7 error {float(err.max())} above tolerance"
+    return float(err.max())
+
+
 def x_sorted(x):
     """The cloud stored in ascending x: a scanner's order, the worst case for
     the tiled core's insertions."""
@@ -518,6 +546,7 @@ def evaluate_phase(embed, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         counts = read_counts()
         assert counts["K1"] >= 1, "the evaluation never launched K1"
         assert counts["K1 k>32"] == 0, counts  # k=20: every K1 ran tiled
+        assert counts["K7"] >= 1, "the evaluation never launched K7"
         pickled = evaluate.main(["--log_dir", log_dir, "--database_pickle", pickles[0],
                                  "--query_pickle", pickles[1],
                                  "--output", os.path.join(log_dir, "results_pickled.txt")])
@@ -746,6 +775,7 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         counts["train check"] = read_counts()
         assert counts["train check"]["K1"] == 1, counts["train check"]
         assert sum(counts["train check"].values()) == 1, counts["train check"]
+        assert counts["train check"]["K7"] == 0, counts["train check"]  # training casts
         pst, pm = step(pst, batch)
         assert read_counts()["K1"] == 1, "the plain-twin step launched K1"
         clouds = flat_clouds(batch)
@@ -911,6 +941,7 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         counts["distill"] = read_counts()
         assert all(np.isfinite(dloss)) and mimic[-1] < mimic[0], (dloss, mimic)
         assert counts["distill"]["K1"] == 20, counts["distill"]  # student + teacher a step
+        assert counts["distill"]["K7"] == 30, counts["distill"]  # the eval teacher's layers
         del st, teacher
         torch.cuda.empty_cache()
     res["distill"] = {"mimic_loss": mimic, "loss": dloss}
@@ -1401,9 +1432,9 @@ def train_quality_phase(dev, tmp: str) -> tuple[dict, dict]:
 
 
 def compile_cache_phase(tmp: str) -> dict:
-    """``cli/benchmark.py`` (K1 and K2) in a process of its own with
-    ``--compilation_cache_dir`` a fresh directory: the two libraries are
-    built there, by their content-addressed names; a second process with no
+    """``cli/benchmark.py`` (K1, K2, and K7 in its eval embed) in a process of
+    its own with ``--compilation_cache_dir`` a fresh directory: the three
+    libraries are built there, by their content-addressed names; a second process with no
     nvcc to find (``CUDA_HOME`` empty, ``PATH`` without it) loads them
     from there and builds nothing."""
     cache = os.path.join(tmp, "kernel_cache")
@@ -1418,7 +1449,8 @@ def compile_cache_phase(tmp: str) -> dict:
         real_dir = _build.BUILD_DIR
         try:
             compile_cache.enable_compilation_cache(cache)
-            want = sorted(_build._target(name)[1].name for name in ("knn_adj", "knn_ids"))
+            want = sorted(_build._target(name)[1].name
+                          for name in ("knn_adj", "knn_ids", "indicator_mean"))
         finally:
             _build.BUILD_DIR = real_dir
         built = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
@@ -1477,7 +1509,9 @@ def main() -> int:
                "packed_mean": ("packed_mean_kernel", 16),
                # K5: S x 2 list sizes x with and without the count; K6: S x 2 lists
                "knn_phase": ("phase_tiled_kernel", 16),
-               "knn_pipelined": ("pipelined_tiled_kernel", 8)}
+               "knn_pipelined": ("pipelined_tiled_kernel", 8),
+               # K7: 2 x 2 dtypes and 4 channel widths
+               "indicator_mean": ("indicator_mean_kernel", 16)}
     spills = {}
     for src, (part, count) in watched.items():
         if src in reports:
@@ -1488,7 +1522,7 @@ def main() -> int:
     dense = sum("dense_tiled" in name for name in spills)
     assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
     log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
-        "them K1's, K5's and K6's on it, and K4's)" if spills else
+        "them K1's, K5's and K6's on it, K4's and K7's)" if spills else
         "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
@@ -1606,6 +1640,28 @@ def main() -> int:
         f"1/16-dense mask, {err_edit} on K3's planes with empty rows, full words and rows "
         "of 40 non-zero words, and a fully dense mask at N=1024; fp32 within 1e-6 of mean "
         "|F|)")
+
+    # -- 5'. K7 against its plain version ----------------------------------
+    with Phase("K7 check"):
+        ind32, _ = knn.knn_adjacency_cuda(x32, k, bf16)  # the serving batch's indicator
+        err_k7 = {c_: check_k7(ind32, c_, bf16, c_) for c_ in (64, 16)}
+        for c_ in (3, 128, 300):
+            check_k7(ind32[:2], c_, bf16, c_)
+        check_k7(ind32[:2], 48, torch.float32, 48)
+        edited = ind32[:2].clone()  # empty rows, full rows, bytes of 2, the last column
+        edited[:, :50] = 0
+        edited[:, 50:100] = 1
+        edited[:, 100:150] *= 2
+        edited[:, 150::2, -1] = 1
+        check_k7(edited, 64, bf16, 7)
+        check_k7(edited, 48, torch.float32, 8)
+        for npts in (1025, 4097, 16384):  # rows of no multiple of 16 bytes; the largest N
+            check_k7(knn.knn_adjacency_cuda(cloud(1, npts), k, bf16)[0], 64, bf16, npts)
+        del edited, ind32
+        torch.cuda.empty_cache()
+    log(f"phase K7 check: ok (bit-equal on the 1/64 grid and max abs err {err_k7} by C on "
+        "random features at B=32, N=4096; C = 3, 128, 300, fp32, edited rows, N = 1025, "
+        "4097 and 16384)")
 
     # -- 5b. K5 and K6 against their plain versions ------------------------
     with Phase("K5/K6 check"):
@@ -1744,6 +1800,8 @@ def main() -> int:
         dense_counts = read_counts()
     assert dense_counts["K1"] >= 1, "the serving path never launched K1"
     assert dense_counts["K1 k>32"] == 0, dense_counts  # k=20: every K1 ran tiled
+    # every forward of the eval dense route: K7 in layers 1-3, no cast
+    assert dense_counts["K7"] == 3 * dense_counts["K1"], dense_counts
     log(f"phase serve: {requests} requests answered; launches {dense_counts}")
 
     # -- 10. serving on the capacity routes, launch counts zeroed ----------
@@ -1964,6 +2022,23 @@ def main() -> int:
               planes.numel() * 4 + 2 * f_relu.numel() * 2, set_bits * 64, [2, n32, 64], "K4",
               dense_product_ms=dense_k4, dense_product="torch.bmm of the unpacked bf16 "
               "mask with F, fp32 sum (the dense route's layer product; unpack not timed)")
+
+        # K7: layers 1-3 of the eval dense route, B=32, N=4096, C=64 (EPC-Net)
+        # and 16 (EPC-Net-L), bf16; beside it the library's cast + product
+        ind32 = knn.knn_adjacency_cuda(x32, k, bf16)[0]
+        for c_ in (64, 16):
+            f_c = torch.relu(torch.randn(32, n, c_, device=dev)).to(bf16)
+            ms_k7 = cuda_ms(lambda: adjacency.indicator_neighbor_mean_cuda(f_c, ind32, k), 20)
+            plain_k7 = cuda_ms(lambda: adjacency.indicator_neighbor_mean_plain(f_c, ind32, k), 5)
+            lib_k7 = cuda_ms(lambda: torch.bmm(ind32.to(bf16), f_c, out_dtype=torch.float32), 5)
+            entry("indicator_mean", "indicator_mean.cu",
+                  "none: the cast + cuBLAS product that XLA fuses into one dot "
+                  "(epcnet_tpu/ops/adjacency.py:245)", dense_counts["K7"], err_k7[c_], ms_k7,
+                  plain_k7, ind32.numel() + 2 * f_c.numel() * 2, 2 * 32 * n * k * c_,
+                  [32, n, c_], "K7", library_ms=lib_k7,
+                  library="ind.to(bf16) then torch.bmm(out_dtype=torch.float32)")
+            del f_c
+        del ind32
 
         # K5 and K6: the trace path's shape, B=8, N=4096; their times are the
         # trace phase's (K5: phase C, k distinct values and the count)

@@ -8,7 +8,11 @@ The kNN graph takes one of three routes, chosen as the JAX model chooses
 (``adjacency_route``; ``adjacency_format`` keeps the JAX meaning):
 
 - dense (``auto`` up to N=16384): K1 gives the int8 indicator and the
-  layer-0 proxy; layers 1.. take ``A @ F`` on the card's matrix units;
+  layer-0 proxy; in evaluation on the card layers 1.. take K7
+  (``indicator_neighbor_mean``), which reads the int8 indicator; in
+  training, and on the CPU, the indicator is cast to the compute dtype once
+  and layers 1.. take ``A @ F`` (``neighbor_mean``; on the card the matrix
+  units, whose product has the backward ``Aᵀ g``);
 - packed (``auto`` past N=16384 where the bit-plane layout accepts N): K3
   gives the indicator as bit planes and the layer-0 proxy; layers 1.. take
   K4 (``packed_neighbor_mean``);
@@ -16,7 +20,8 @@ The kNN graph takes one of three routes, chosen as the JAX model chooses
   layer 0 included, takes ``gather_neighbor_mean``.
 
 Training (``train=True``) never takes the packed route (K4 has no
-backward) and takes gather from N=32768 on, as the JAX model does; the
+backward) nor K7 (none either) and takes gather from N=32768 on, as the
+JAX model does; the
 graph is structure, built with no gradient, and every product of the
 backward pass is a library one (``ops/matmul.py``; the gather's backward
 is a scatter-add, whose fp32 sums the card adds in no fixed order).
@@ -119,9 +124,14 @@ class EPCNet(nn.Module):
         """The network after the kNN graph, as ``build_graph`` gives it for
         ``route``. Split from ``forward`` so a caller can feed a graph from
         another source (the plain twins on the card, to hold the kernel path
-        against them). Its parts are named spans (``profile_region``):
-        ``epcnet/indicator_cast``, ``epcnet/proxyconv_{i}``, ``epcnet/lift``,
-        ``epcnet/gvlad``."""
+        against them). On the dense route layers 1.. take the mean from an
+        int8 indicator on the card with ``train`` False through K7, and from
+        the indicator cast to the compute dtype otherwise (training, the CPU,
+        or a caller's graph already in that dtype). Its parts are named spans
+        (``profile_region``): ``epcnet/indicator_cast`` (the cast, where it
+        runs), ``epcnet/proxyconv_{i}`` (each holding
+        ``epcnet/neighbor_mean`` on the dense route's layers 1..),
+        ``epcnet/lift``, ``epcnet/gvlad``."""
         if route not in ("dense", "packed", "gather"):
             raise ValueError(f"route must be dense|packed|gather, got {route!r}")
         dtype = compute_dtype(self.cfg)
@@ -136,6 +146,8 @@ class EPCNet(nn.Module):
                 proxy = proxy0
             elif route == "packed":
                 proxy = packed_neighbor_mean(f, graph, self.cfg.knn_k, dtype)
+            elif a is None and not train and graph.is_cuda:
+                a = graph  # K7 reads the int8 indicator in each of layers 1..
             elif a is None:
                 with profile_region("epcnet/indicator_cast"):
                     a = graph.to(dtype)  # once per forward, shared by layers 1..

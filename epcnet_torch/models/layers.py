@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from epcnet_torch.ops.adjacency import neighbor_mean
+from epcnet_torch.ops.adjacency import indicator_neighbor_mean, neighbor_mean
 from epcnet_torch.parallel.collectives import all_reduce_sum, group_size
 from epcnet_torch.utils.profiling import profile_region
 
@@ -148,7 +148,8 @@ class SharedMLP(nn.Module):
 
 class ProxyConv(nn.Module):
     """EPC-Net's ProxyConv [PAPER §III-B]: proxy_i = mean of the K
-    neighbours' features (the 0/1 indicator matmul scaled by 1/K, or a
+    neighbours' features (the 0/1 indicator matmul scaled by 1/K; K7 where
+    the indicator comes as K1's int8, which has no backward; or a
     precomputed ``proxy``); output = ReLU(BN(W · [proxy - f, f])) — the
     concatenation in that order."""
 
@@ -162,10 +163,14 @@ class ProxyConv(nn.Module):
 
     def forward(self, features: torch.Tensor, adjacency: torch.Tensor | None,
                 proxy: torch.Tensor | None = None, train: bool = False, momentum=0.9):
-        if proxy is None:  # the dense route's A @ F, a span of its own
+        if proxy is None:  # the dense route's mean, a span of its own
             with profile_region("epcnet/neighbor_mean"):
-                proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
-                                      adjacency_scale=1.0 / self.knn_k)
+                if adjacency.dtype == torch.int8:
+                    proxy = indicator_neighbor_mean(features, adjacency, self.knn_k,
+                                                    self.dtype)
+                else:
+                    proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
+                                          adjacency_scale=1.0 / self.knn_k)
         h = torch.cat([proxy - features, features], dim=-1)
         return F.relu(self.bn(self.dense(h), train, momentum))
 

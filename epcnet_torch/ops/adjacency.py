@@ -6,7 +6,9 @@ the JAX package the kNN graph is built once per forward and every layer's
 mean reads it in one of three layouts, the model's adjacency routes:
 
 - dense: the [N, N] 0/1 indicator; the mean is one matmul ``A @ F`` scaled
-  by 1/K afterwards (``neighbor_mean``);
+  by 1/K afterwards (``neighbor_mean``); in evaluation on the card K7
+  (``csrc/indicator_mean.cu``) reads the int8 indicator instead
+  (``indicator_neighbor_mean``);
 - packed: the indicator as int32 bit planes [N, N/32] (``pack_indicator``);
   the mean is K4 (``csrc/packed_mean.cu``) on the card
   (``packed_neighbor_mean``);
@@ -162,6 +164,86 @@ def packed_neighbor_mean(features: torch.Tensor, packed: torch.Tensor, k: int,
         return packed_neighbor_mean_plain(features, packed, k, dtype)
     out = packed_neighbor_mean_cuda(features.reshape(-1, ncols, c),
                                     packed.reshape(-1, nrows, w), k, dtype)
+    return out.reshape(*lead, nrows, c)
+
+
+def indicator_neighbor_mean_plain(features: torch.Tensor, indicator: torch.Tensor,
+                                  k: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """K7's plain version: the indicator cast to ``dtype``, then
+    ``neighbor_mean`` with the 1/k scale (the dense route's training
+    arithmetic)."""
+    return neighbor_mean(features, indicator.to(dtype), compute_dtype=dtype,
+                         adjacency_scale=1.0 / k)
+
+
+def _check_indicator_mean(features: torch.Tensor, indicator: torch.Tensor, dtype) -> None:
+    """K7's inputs: no gradient asked for (K7 has no backward), an int8
+    indicator [..., Nr, N], features [..., N, C] with the same leading dims,
+    and bf16 or fp32 features and compute dtype."""
+    if torch.is_grad_enabled() and features.requires_grad:
+        raise RuntimeError("indicator_neighbor_mean has no backward; training casts the "
+                           "indicator and takes neighbor_mean")
+    if indicator.dtype != torch.int8:
+        raise ValueError(f"the indicator is int8, got {indicator.dtype}")
+    for dt in (dtype, features.dtype):
+        if dt not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"K7 computes in bf16 or fp32, got {dt}")
+    if (features.dim() != indicator.dim() or indicator.dim() < 2
+            or features.shape[:-1] != (*indicator.shape[:-2], indicator.shape[-1])):
+        raise ValueError(f"features {tuple(features.shape)} do not match the indicator "
+                         f"{tuple(indicator.shape)} ({indicator.shape[-1]} columns)")
+
+
+def indicator_neighbor_mean_cuda(features: torch.Tensor, indicator: torch.Tensor,
+                                 k: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch K7 on ``torch.cuda.current_stream()``. indicator [B, Nr, N]
+    int8 and features [B, N, C] on the card; the output [B, Nr, C] is in the
+    features' dtype. Each launch adds one to
+    ``indicator_neighbor_mean_cuda.launches``."""
+    _check_indicator_mean(features, indicator, dtype)
+    if indicator.dim() != 3:
+        raise ValueError(f"K7 takes an indicator [B, Nr, N], got {tuple(indicator.shape)}")
+    if indicator.device.type != "cuda" or features.device != indicator.device:
+        raise ValueError(f"K7 takes CUDA tensors on one card, got {indicator.device} "
+                         f"and {features.device}")
+    b, nrows, n = indicator.shape
+    c = features.shape[-1]
+    f = features.to(dtype).contiguous()
+    indicator = indicator.contiguous()
+    out = torch.empty((b, nrows, c), dtype=features.dtype, device=indicator.device)
+    with torch.cuda.device(indicator.device):
+        _build.launch("indicator_mean", "indicator_mean_launch", "pppiiiiiifp",
+                      indicator.data_ptr(), f.data_ptr(), out.data_ptr(), b, nrows, n, c,
+                      int(dtype == torch.bfloat16), int(features.dtype == torch.bfloat16),
+                      1.0 / k, torch.cuda.current_stream().cuda_stream)
+    indicator_neighbor_mean_cuda.launches += 1
+    return out
+
+
+indicator_neighbor_mean_cuda.launches = 0
+
+
+def indicator_neighbor_mean(features: torch.Tensor, indicator: torch.Tensor, k: int,
+                            dtype=torch.bfloat16) -> torch.Tensor:
+    """Neighbour mean straight from the dense int8 indicator, with no
+    backward: the dense route's mean in evaluation.
+
+    Args:
+      features: [..., N, C] with N = indicator.shape[-1], needing no
+        gradient.
+      indicator: [..., N_rows, N] int8 (K1's); a byte counts with its value.
+      k: the mean's 1/k scale. dtype: compute dtype (bf16 or fp32).
+
+    Returns [..., N_rows, C] in features.dtype: K7 on a CUDA tensor, the
+    plain cast-then-``neighbor_mean`` on a CPU tensor.
+    """
+    _check_indicator_mean(features, indicator, dtype)
+    *lead, nrows, n = indicator.shape
+    c = features.shape[-1]
+    if indicator.device.type == "cpu":
+        return indicator_neighbor_mean_plain(features, indicator, k, dtype)
+    out = indicator_neighbor_mean_cuda(features.reshape(-1, n, c),
+                                       indicator.reshape(-1, nrows, n), k, dtype)
     return out.reshape(*lead, nrows, c)
 
 

@@ -11,7 +11,8 @@ core); the proxy within 1 bf16 ulp (an fp32 sum in another order), or 1e-6
 relative in fp32 (K6's too). K4 sums the set rows of F in fp32 where its
 twin runs cuBLAS, so the two differ by fp32 rounding of the sum, at most about 1e-6 of the mean of
 |F| over the row's set bits: bf16 results within 1 bf16 ulp plus that, fp32
-results within that.
+results within that. K7 likewise, and bit-equal to its twin on features on
+a grid of 1/64, where any order of the fp32 sum is exact.
 """
 
 import os
@@ -244,6 +245,94 @@ def test_k4_matches_plain(cuda, b, n, c, density, fdtype, dtype):
     before = adjacency.packed_neighbor_mean_cuda.launches
     _k4_check(f, planes, k, getattr(torch, dtype))
     assert adjacency.packed_neighbor_mean_cuda.launches == before + 1
+
+
+def _k7_features(seed, b, n, c, fdtype, grid, dev):
+    """Random features, or on a grid of 1/64 in [-4, 4], where every fp32
+    sum of a row (up to 2 x 16384 terms) is exact in any order."""
+    f = np.random.default_rng(seed).standard_normal((b, n, c)).astype(np.float32)
+    if grid:
+        f = np.clip(np.round(f * 64) / 64, -4, 4)
+    return torch.tensor(f, device=dev).to(getattr(torch, fdtype))
+
+
+def _k7_check(ind, c, fdtype, dtype, seed):
+    """K7 against its plain version (the cast, then cuBLAS with an fp32 sum)
+    on features on the 1/64 grid: bit-equal; on random features: within 1
+    bf16 ulp (bf16 results) plus 1e-6 of the mean of |F| over the row's set
+    bytes, the fp32 rounding of a sum in another order."""
+    b, _, n = ind.shape
+    dt = getattr(torch, dtype)
+    for grid in (True, False):
+        f = _k7_features(seed, b, n, c, fdtype, grid, ind.device)
+        before = adjacency.indicator_neighbor_mean_cuda.launches
+        got = adjacency.indicator_neighbor_mean(f, ind, 20, dt)
+        assert adjacency.indicator_neighbor_mean_cuda.launches == before + 1
+        want = adjacency.indicator_neighbor_mean_plain(f, ind, 20, dt)
+        assert got.dtype == f.dtype and got.shape == want.shape
+        if grid:
+            assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+            continue
+        want = want.float()
+        scale = adjacency.indicator_neighbor_mean_plain(f.abs().float(), ind, 20,
+                                                        torch.float32)
+        err = (got.float() - want).abs()
+        tol = 1e-6 * scale + (_bf16_spacing(want) if f.dtype == torch.bfloat16 else 0)
+        assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("b,n", [(1, 4096), (8, 4096), (32, 4096), (1, 1025), (2, 4097),
+                                 (1, 16384)])
+def test_k7_matches_plain_on_k1(cuda, b, n):
+    """K1's own indicator: the serving batches at N=4096, rows that are no
+    multiple of 16 bytes (1025, 4097) and the dense route's largest N."""
+    ind, _ = knn.knn_adjacency(_cloud(n + b, b, n, cuda), 20)
+    _k7_check(ind, 64, "bfloat16", "bfloat16", n)
+
+
+@pytest.mark.parametrize("n", [512, 4096, 1025])
+def test_k7_matches_plain_on_hand_masks(cuda, n):
+    """K1's indicator edited: rows with no set byte, rows with every byte
+    set, bytes of 2, and the last column set in every other row."""
+    ind, _ = knn.knn_adjacency(_cloud(n, 2, n, cuda), 20)
+    ind[:, :50] = 0
+    ind[:, 50:100] = 1
+    ind[:, 100:150] *= 2
+    ind[:, 150::2, -1] = 1
+    _k7_check(ind, 64, "bfloat16", "bfloat16", n + 1)
+
+
+@pytest.mark.parametrize("c", [3, 16, 64, 128, 300])
+@pytest.mark.parametrize("fdtype,dtype", [("bfloat16", "bfloat16"), ("float32", "float32"),
+                                          ("bfloat16", "float32"), ("float32", "bfloat16")])
+def test_k7_matches_plain_by_width(cuda, c, fdtype, dtype):
+    """Every channel template (1, 2, 4, 8 a lane; C=300 in two blocks) and
+    both dtypes of features and of the sum, at an unaligned N."""
+    ind, _ = knn.knn_adjacency(_cloud(c, 2, 1025, cuda), 20)
+    ind[:, :10] = 0
+    ind[:, 10:20, ::3] = 2
+    _k7_check(ind, c, fdtype, dtype, c)
+
+
+def test_k7_on_the_eval_dense_route(cuda):
+    """The full-width model's eval forward at B=32: K7 three times (layers
+    1-3), within the routes' 1e-3 of the same forward through the cast and
+    cuBLAS; the training step's forward launches it never (its backward
+    needs the cast indicator)."""
+    cfg = ModelConfig()
+    embed = build_embed_fn(cfg, device=cuda)
+    x = _cloud(21, 32, cfg.num_points, cuda)
+    before = adjacency.indicator_neighbor_mean_cuda.launches
+    d = embed(x)
+    assert adjacency.indicator_neighbor_mean_cuda.launches == before + 3
+    with torch.inference_mode():
+        ind, proxy = knn.knn_adjacency(x, cfg.knn_k)
+        d_cast = embed.model.forward_graph(x, ind.to(torch.bfloat16), proxy)
+    assert adjacency.indicator_neighbor_mean_cuda.launches == before + 3
+    assert d.shape == (32, 256) and bool(torch.isfinite(d).all())
+    assert float((d - d_cast).abs().max()) <= 1e-3
+    with pytest.raises(RuntimeError, match="no backward"):
+        embed.model(x[:2])  # eval with a gradient asked for
 
 
 def test_gather_mean_takes_int32_ids(cuda):
@@ -549,9 +638,11 @@ def test_train_step_kernel_path_matches_plain(cuda, fmt):
     cfg = ModelConfig(num_points=2048, knn_k=20, proxyconv_channels=(16, 16, 16, 32),
                       lift_channels=(64, 128), feature_dim=128, vlad_clusters=16,
                       vlad_groups=4, vlad_group_dim=16, adjacency_format=fmt)
+    k7 = adjacency.indicator_neighbor_mean_cuda.launches
     kst, km, pst, pm, launched = _step_pair(cfg, TrainConfig(), _blob_batch(5, 2, 2, 4, 2048),
                                             cuda)
     assert launched == ((1, 0) if fmt == "dense" else (0, 1))
+    assert adjacency.indicator_neighbor_mean_cuda.launches == k7  # training casts
     lk, lp = float(km["loss"]), float(pm["loss"])
     assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_TOL["loss"] * abs(lp)
     assert _grad_gap(flat_grads(kst.model), flat_grads(pst.model)) <= TRAIN_TOL["grad"]

@@ -294,6 +294,73 @@ def test_packed_neighbor_mean_matches(dtype, density):
         tadj.packed_neighbor_mean(tf[:, :100], _t(packed), k)
 
 
+def _indicator_case(seed, b, n, c, k):
+    """An int8 indicator with k distinct random columns a row, one byte of 2
+    a cloud (row 1, column 0) and the last column set in row 0, and
+    features."""
+    rng = np.random.RandomState(seed)
+    cols = np.argsort(rng.rand(b, n, n), axis=-1)[..., :k] if n <= 1100 else \
+        rng.randint(0, n, (b, n, k))  # past ~1000 columns duplicates may merge
+    ind = np.zeros((b, n, n), np.int8)
+    np.put_along_axis(ind, cols, 1, axis=-1)
+    ind[:, 1, 0] = 2
+    ind[:, 0, -1] = 1
+    return ind, rng.randn(b, n, c).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,c", [(96, 3), (1025, 16), (4096, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_indicator_neighbor_mean_matches(dtype, n, c):
+    """K7's wrapper on a CPU tensor: bit-equal to the cast indicator through
+    ``neighbor_mean`` with the 1/k scale (the training route's arithmetic),
+    and to the JAX ``neighbor_mean`` on the int8 indicator up to the order
+    of the fp32 sum; a byte of 2 counts twice."""
+    k = 20
+    ind, f = _indicator_case(n + c, 2 if n < 4096 else 1, n, c, k)
+    td = getattr(torch, dtype)
+    tf, tind = _t(f).to(td), _t(ind)
+    got = tadj.indicator_neighbor_mean(tf, tind, k, td)
+    assert got.dtype == td and got.shape == tf.shape
+    assert torch.equal(got, tadj.neighbor_mean(tf, tind.to(td), td, 1.0 / k))
+    exact = ind.astype(np.float64) @ tf.double().numpy() / k  # byte 2: column 0 twice
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5, atol=1e-6)
+    else:
+        assert _within_bf16_ulps(got.float().numpy(), exact)
+    jd = jnp.dtype(dtype)
+    want = np.asarray(jadj.neighbor_mean(jnp.asarray(f).astype(jd),
+                                         adjacency=jnp.asarray(ind), compute_dtype=jd,
+                                         adjacency_scale=1.0 / k).astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    else:  # an fp32 sum in another order may round to the neighbouring bf16
+        assert _within_bf16_ulps(got.float().numpy(), want)
+
+
+def test_indicator_neighbor_mean_refuses():
+    """No backward, an int8 indicator only, bf16 or fp32 only, and features
+    whose rows are the indicator's columns."""
+    ind, f = _indicator_case(5, 2, 64, 8, 4)
+    tind, tf = _t(ind), _t(f)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tadj.indicator_neighbor_mean(tf.requires_grad_(), tind, 4)
+    tf = tf.detach()
+    with torch.no_grad():  # no gradient asked for: the same features pass
+        tadj.indicator_neighbor_mean(tf.clone().requires_grad_(), tind, 4)
+    with pytest.raises(ValueError, match="int8"):
+        tadj.indicator_neighbor_mean(tf, tind.to(torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tadj.indicator_neighbor_mean(tf.half(), tind, 4)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tadj.indicator_neighbor_mean(tf, tind, 4, torch.float16)
+    with pytest.raises(ValueError, match="do not match"):
+        tadj.indicator_neighbor_mean(tf[:, :63], tind, 4)
+    with pytest.raises(ValueError, match="do not match"):
+        tadj.indicator_neighbor_mean(tf[:1], tind, 4)
+    with pytest.raises(ValueError, match="do not match"):
+        tadj.indicator_neighbor_mean(tf[0], tind, 4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gather_neighbor_mean_matches(dtype):
     """The gather route's mean against the JAX ``gather_neighbor_mean``, from
