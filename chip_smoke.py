@@ -5,11 +5,12 @@
 
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
-``knn_phase.cu``, K6 ``knn_pipelined.cu``, K7 ``indicator_mean.cu``; K1-K3,
-K5 and K6 on the tiled core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the
-ptxas report of every tiled kernel, of K4 and of K7 must show no spill),
-holds each against its plain
-PyTorch version on the card, builds the full-width EPC-Net
+``knn_phase.cu``, K6 ``knn_pipelined.cu``, K7 ``indicator_mean.cu``, K8
+``knn_features.cu``; K1-K3, K5, K6 and K8 on the tiled core ``knn_tile.cuh``
+for k (K5: rounds) <= 32; the ptxas report of every tiled kernel, of K4 and
+of K7 must show no spill), holds each against its plain
+PyTorch version on the card, runs DGCNN-VLAD ("dgcnn_vlad":
+``dgcnn_vlad_phase``), builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
 
@@ -169,6 +170,7 @@ from epcnet_torch.configs import (
     ExperimentConfig,
     ModelConfig,
     TrainConfig,
+    dgcnn_vlad_config,
     epcnet_l_config,
     pointnetvlad_config,
 )
@@ -237,7 +239,19 @@ COUNTERS = {
     "K6": (knn_phases.knn_adjacency_pipelined_cuda, "launches"),
     "K6 k>32": (knn_phases.knn_adjacency_pipelined_cuda, "launches_rounds"),
     "K7": (adjacency.indicator_neighbor_mean_cuda, "launches"),
+    "K8": (knn.knn_features_cuda, "launches"),
 }
+
+
+# DGCNN-VLAD at the published widths (17,592,256 parameters), the batch of
+# the benchmark's cell; its descriptors against the plain fp32 reference of
+# the CPU tests (tests/plain_dgcnn_vlad.py) a cloud at a time, on the first
+# DGCNN_REF_CLOUDS, within the CPU tests' bf16 limit
+DGCNN_PARAMS = 17_592_256
+DGCNN_BATCH = 32
+DGCNN_REF_CLOUDS = 8
+DGCNN_TOL = 2e-2
+BF16_PEAK_FLOPS = 989e12  # H100 SXM tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -504,6 +518,114 @@ def check_k6(x, k, splits=()) -> float:
             f"K6 differs at S={split} (B,N,k={shape},{k})"
         del adj_s
     return float(err.max())
+
+
+def check_k8(f: torch.Tensor, k: int) -> float:
+    """K8 against its plain twin on the same bf16 features [B, N, D]: rank
+    by rank their fp64 scores ||f_j||^2 - 2 <f_i, f_j> agree within 2^-16
+    (||f_i||^2 + the cloud's largest ||f_j||^2), fp32's rounding of a
+    D-term sum (D <= 256), as the card tests hold them. Returns the share of
+    rows whose ids differ (near-ties the two sums order apart)."""
+    got = knn.knn_features_cuda(f, k)
+    want = knn.knn_features_plain(f, k)
+    x = f.double()
+    nrm = (x * x).sum(-1)
+    worst = 0.0
+    for b in range(f.shape[0]):  # a cloud at a time: the fp64 scores are N^2
+        s_ = nrm[b][None, :] - 2 * x[b] @ x[b].t()
+        gap = (s_.gather(-1, got[b].long()) - s_.gather(-1, want[b].long())).abs()
+        eps = 2.0 ** -16 * (nrm[b] + nrm[b].max())[:, None]
+        worst = max(worst, float((gap - eps).max()))
+        del s_
+    assert worst <= 0, worst
+    return float((got != want).any(-1).double().mean())
+
+
+def plain_dgcnn_vlad():
+    """``tests/plain_dgcnn_vlad.py``, the plain reference (torch only)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "plain_dgcnn_vlad.py")
+    spec = importlib.util.spec_from_file_location("plain_dgcnn_vlad", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dgcnn_vlad_phase(dev) -> dict:
+    """DGCNN-VLAD at the published widths, B=32 submaps of N=4096 through
+    ``build_embed_fn`` and ``PlaceIndex.embed``, launch counts zeroed
+    before it: one K2 and three K8 a forward, no K1 and no K7. The first 8
+    submaps' descriptors against the plain fp32 reference (a cloud at a
+    time), with the share of points whose layer-1..3 neighbour sets differ
+    from the reference's; K8 against its plain twin on the model's own
+    layer inputs (D = 64, 64, 128); K8's time at D = 64 and 128 beside its
+    bound, its plain twin's and ``torch.cdist`` + ``torch.topk``'s (which
+    promises no tie order); the embed's time and peak memory."""
+    cfg = dgcnn_vlad_config()
+    n, k = cfg.num_points, cfg.knn_k
+    flat = init_flat_variables(cfg, seed=0)
+    embed = build_embed_fn(cfg, variables=flat)
+    model = embed.model
+    assert param_count(model) == DGCNN_PARAMS, param_count(model)
+    sub = submaps(np.random.default_rng(20), DGCNN_BATCH, n)
+    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=DGCNN_BATCH, num_points=n)
+    ix.embed(sub)  # warm
+    zero_counts()
+    desc = ix.embed(sub)
+    counts = read_counts()
+    assert (counts["K2"], counts["K8"], counts["K1"], counts["K7"]) == (1, 3, 0, 0), counts
+
+    x = torch.tensor(sub, device=dev)
+    plain = plain_dgcnn_vlad()
+    w = {key: v.float() for key, v in model.state_dict().items()}
+    with torch.inference_mode():
+        _, graphs = model.forward_with_graphs(x)
+        feats, f = [], x.to(torch.bfloat16)
+        for i in range(len(cfg.proxyconv_channels) - 1):
+            f = getattr(model, f"edgeconv_{i}")(f, graphs[i])
+            feats.append(f)
+    differ = [[] for _ in graphs]
+    gaps = []
+    with torch.no_grad():
+        for i in range(DGCNN_REF_CLOUDS):
+            d_ref, g_ref = plain.forward(w, x[i:i + 1], k, cfg.proxyconv_channels)
+            gaps.append(float((torch.tensor(desc[i], device=dev) - d_ref[0]).norm()))
+            for layer, (g, h) in enumerate(zip(graphs, g_ref)):
+                same = torch.sort(g[i].long(), -1).values == torch.sort(h[0], -1).values
+                differ[layer].append(float((~same.all(-1)).double().mean()))
+            del d_ref, g_ref
+    desc_gap = max(gaps)
+    assert desc_gap <= DGCNN_TOL, gaps
+    assert max(differ[0]) == 0.0, differ[0]  # layer 0's graph: xyz in fp32, K2 exact
+    k8_differ = [check_k8(fl, k) for fl in feats]
+
+    k8 = {}
+    for f_ in (feats[0], feats[2]):  # D = 64 (layers 1-2's inputs), 128 (layer 3's)
+        b_, n_, d_ = f_.shape
+        pairs = b_ * n_ * n_
+        ff = f_.float()
+        k8[f"d{d_}"] = {
+            "ms": cuda_ms(lambda: knn.knn_features_cuda(f_, k), 20),
+            "plain_ms": cuda_ms(lambda: knn.knn_features_plain(f_, k), 3),
+            "library_ms": cuda_ms(lambda: torch.cdist(ff, ff).topk(k, largest=False), 3),
+            # the products on the tensor cores and the pair's subtraction
+            "bound_ms": (2 * d_ * pairs / BF16_PEAK_FLOPS + pairs / FP32_OPS_PER_S) * 1e3,
+            "bytes_ms": (f_.numel() * 2 + b_ * n_ * k * 4) / HBM_BYTES_PER_S * 1e3,
+            "shape": [b_, n_, d_], "k": k}
+        del ff
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.inference_mode():
+        embed_ms = cuda_ms(lambda: embed(x), 5)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return {"params": param_count(model), "launches": counts, "desc_gap": desc_gap,
+            "desc_gaps": gaps, "graph_differ_share": {
+                f"layer{i}": [min(v), max(v)] for i, v in enumerate(differ)},
+            "k8_vs_plain_rows_differ": k8_differ, "k8": k8,
+            "embed_b32_ms": embed_ms, "embed_peak_bytes": peak}
 
 
 def misaligned(x):
@@ -1511,7 +1633,9 @@ def main() -> int:
                "knn_phase": ("phase_tiled_kernel", 16),
                "knn_pipelined": ("pipelined_tiled_kernel", 8),
                # K7: 2 x 2 dtypes and 4 channel widths
-               "indicator_mean": ("indicator_mean_kernel", 16)}
+               "indicator_mean": ("indicator_mean_kernel", 16),
+               # K8: the two list sizes
+               "knn_features": ("knn_features_tiled_kernel", 2)}
     spills = {}
     for src, (part, count) in watched.items():
         if src in reports:
@@ -1522,7 +1646,7 @@ def main() -> int:
     dense = sum("dense_tiled" in name for name in spills)
     assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
     log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
-        "them K1's, K5's and K6's on it, K4's and K7's)" if spills else
+        "them K1's, K5's and K6's on it, K4's, K7's and K8's)" if spills else
         "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
@@ -1726,6 +1850,16 @@ def main() -> int:
         f"{smem}; K6 indicator exact and equal to K1's on {len(k6_cases) + 4} clouds up to "
         f"N=32768 at k = 20, 32 (at every S) and 33 (up to N=20000), and at B=32, proxy max "
         f"abs err {err_k6})")
+
+    # -- 5''. DGCNN-VLAD: K8 and the model ---------------------------------
+    with Phase("dgcnn_vlad"):
+        dgcnn = dgcnn_vlad_phase(dev)
+    log(f"phase dgcnn_vlad: {dgcnn['params']} params, B={DGCNN_BATCH}, N=4096, launches "
+        f"{dgcnn['launches']}; descriptors against the plain fp32 reference max L2 "
+        f"{dgcnn['desc_gap']}; points whose neighbour set differs by layer "
+        f"{dgcnn['graph_differ_share']}; K8 rows differing from its plain twin (near-ties) "
+        f"{dgcnn['k8_vs_plain_rows_differ']}")
+    log(json.dumps({"dgcnn_vlad": dgcnn}))
 
     # -- 6. the full-width model from seeded weights -----------------------
     with Phase("model"):

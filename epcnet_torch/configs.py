@@ -29,7 +29,7 @@ class ModelConfig:
     readable reference".
     """
 
-    name: str = "epcnet"  # epcnet | epcnet_l | pointnetvlad
+    name: str = "epcnet"  # epcnet | epcnet_l | pointnetvlad | dgcnn_vlad
     num_points: int = 4096
     knn_k: int = 20  # [MEMORY-LOW] spatial-adjacency kNN size
     # ProxyConv stack output channels [MEMORY-LOW ≈ 64,64,64,128]:
@@ -107,6 +107,28 @@ def pointnetvlad_config(**kw: Any) -> ModelConfig:
     [LINEAGE: mikacuy/pointnetvlad models/pointnetvlad_cls.py]. Used for the
     aggregation-kernel parity check (BASELINE config #3)."""
     base = dict(name="pointnetvlad", vlad_groups=1, vlad_group_dim=256)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def dgcnn_vlad_config(**kw: Any) -> ModelConfig:
+    """DGCNN-VLAD: the DGCNN backbone [LINEAGE: WangYueFt/dgcnn
+    pytorch/model.py class DGCNN; arXiv:1801.07829] under PointNetVLAD's
+    NetVLAD head [arXiv:1804.03492], at the published widths (k=20). A model
+    of the port alone (``models/dgcnn.py``); the JAX package has none. It
+    reuses the fields it needs: ``proxyconv_channels`` holds the EdgeConv
+    widths, ``lift_channels`` conv5, and ``adjacency_format="gather"`` says
+    that every layer's graph is id lists (built again at each layer)."""
+    base = dict(
+        name="dgcnn_vlad",
+        proxyconv_channels=(64, 64, 128, 256),
+        lift_channels=(1024,),
+        feature_dim=1024,
+        vlad_clusters=64,
+        vlad_groups=1,
+        vlad_group_dim=256,
+        adjacency_format="gather",
+    )
     base.update(kw)
     return ModelConfig(**base)
 

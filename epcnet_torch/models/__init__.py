@@ -1,4 +1,5 @@
-"""Model zoo of the port: EPC-Net, EPC-Net-L and PointNetVLAD. Each model's
+"""Model zoo of the port: EPC-Net, EPC-Net-L, PointNetVLAD and DGCNN-VLAD
+(the last in the port alone). Each model's
 ``forward(points, train=False, momentum=0.9)`` takes the JAX call's
 arguments; ``layers.commit_batch_stats`` applies a train forward's BN
 statistics."""
@@ -8,8 +9,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from epcnet_torch.configs import ModelConfig, epcnet_l_config, pointnetvlad_config
+from epcnet_torch.configs import (
+    ModelConfig,
+    dgcnn_vlad_config,
+    epcnet_l_config,
+    pointnetvlad_config,
+)
 from epcnet_torch.device import resolve_device
+from epcnet_torch.models.dgcnn import DGCNNVLAD
 from epcnet_torch.models.epcnet import EPCNet, param_count
 from epcnet_torch.models.layers import (
     Dense,
@@ -22,7 +29,8 @@ from epcnet_torch.models.layers import (
 from epcnet_torch.models.pointnetvlad import PointNetVLAD
 from epcnet_torch.models.vlad_head import GVLADHead
 
-MODELS = {"epcnet": EPCNet, "epcnet_l": EPCNet, "pointnetvlad": PointNetVLAD}
+MODELS = {"epcnet": EPCNet, "epcnet_l": EPCNet, "pointnetvlad": PointNetVLAD,
+          "dgcnn_vlad": DGCNNVLAD}
 
 
 def model_class(cfg: ModelConfig) -> type[nn.Module]:
@@ -47,6 +55,7 @@ __all__ = [
     "model_class",
     "EPCNet",
     "PointNetVLAD",
+    "DGCNNVLAD",
     "GVLADHead",
     "ProxyConv",
     "SharedMLP",
@@ -58,4 +67,5 @@ __all__ = [
     "ModelConfig",
     "epcnet_l_config",
     "pointnetvlad_config",
+    "dgcnn_vlad_config",
 ]

@@ -131,6 +131,7 @@ class EPCNet(nn.Module):
         (``profile_region``): ``epcnet/indicator_cast`` (the cast, where it
         runs), ``epcnet/proxyconv_{i}`` (each holding
         ``epcnet/neighbor_mean`` on the dense route's layers 1..),
+        ``epcnet/neighbor_mean`` before each layer on the gather route,
         ``epcnet/lift``, ``epcnet/gvlad``."""
         if route not in ("dense", "packed", "gather"):
             raise ValueError(f"route must be dense|packed|gather, got {route!r}")
@@ -141,7 +142,8 @@ class EPCNet(nn.Module):
         for i in range(len(self.cfg.proxyconv_channels)):
             proxy = None
             if route == "gather":
-                proxy = gather_neighbor_mean(f, graph)
+                with profile_region("epcnet/neighbor_mean"):
+                    proxy = gather_neighbor_mean(f, graph)
             elif i == 0:
                 proxy = proxy0
             elif route == "packed":

@@ -32,17 +32,23 @@ class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: input, weight and bias are cast to
     ``dtype`` and the output stays in it. ``weight`` is [out, in], torch's
     layout (flax's kernel is [in, out]); the bias is added after the
-    product, as flax does."""
+    product, as flax does. ``bias=False``: no bias parameter at all (flax's
+    ``use_bias=False``)."""
 
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features))
+        else:
+            self.register_parameter("bias", None)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class DynamicBatchNorm(nn.Module):
@@ -125,24 +131,30 @@ def set_bn_group(model: nn.Module, group) -> None:
 
 class SharedMLP(nn.Module):
     """Per-point MLP stack: Dense -> BN -> ReLU per width (``dense_{i}``,
-    ``bn_{i}``; the last BN/ReLU only with ``activate_final``)."""
+    ``bn_{i}``; the last BN/ReLU only with ``activate_final``).
+    ``negative_slope`` > 0 makes the activation a LeakyReLU; ``bias`` and
+    ``epsilon`` go to every Dense and BN."""
 
     def __init__(self, in_features: int, widths: Sequence[int],
-                 dtype=torch.bfloat16, activate_final: bool = True, bn_group=None):
+                 dtype=torch.bfloat16, activate_final: bool = True, bn_group=None,
+                 bias: bool = True, epsilon: float = 1e-3, negative_slope: float = 0.0):
         super().__init__()
         self.widths = tuple(widths)
         self.activate_final = activate_final
+        self.negative_slope = negative_slope
         for i, w in enumerate(self.widths):
-            self.add_module(f"dense_{i}", Dense(in_features, w, dtype))
+            self.add_module(f"dense_{i}", Dense(in_features, w, dtype, bias=bias))
             if i < len(self.widths) - 1 or activate_final:
-                self.add_module(f"bn_{i}", DynamicBatchNorm(w, group=bn_group))
+                self.add_module(f"bn_{i}", DynamicBatchNorm(w, epsilon, group=bn_group))
             in_features = w
 
     def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
         for i in range(len(self.widths)):
             x = getattr(self, f"dense_{i}")(x)
             if hasattr(self, f"bn_{i}"):
-                x = F.relu(getattr(self, f"bn_{i}")(x, train, momentum))
+                x = getattr(self, f"bn_{i}")(x, train, momentum)
+                x = (F.leaky_relu(x, self.negative_slope) if self.negative_slope
+                     else F.relu(x))
         return x
 
 

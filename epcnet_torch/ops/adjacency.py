@@ -12,9 +12,10 @@ mean reads it in one of three layouts, the model's adjacency routes:
 - packed: the indicator as int32 bit planes [N, N/32] (``pack_indicator``);
   the mean is K4 (``csrc/packed_mean.cu``) on the card
   (``packed_neighbor_mean``);
-- gather: the [N, K] id lists; the mean is a gather of [N, K, C] summed in
-  fp32 (``gather_neighbor_mean``), which the JAX package computes outside
-  any kernel too.
+- gather: the [N, K] id lists; the mean is a gather of [N, K, C]
+  (``gather_neighbors``, which DGCNN-VLAD's edges share) summed in fp32
+  (``gather_neighbor_mean``), which the JAX package computes outside any
+  kernel too.
 
 Bit-plane layout: for words w in [0, W) with W = n/32, bit j of word w is
 column j*W + w, so plane j is the column slice [j*W, (j+1)*W). Plane 31 is
@@ -247,14 +248,21 @@ def indicator_neighbor_mean(features: torch.Tensor, indicator: torch.Tensor, k: 
     return out.reshape(*lead, nrows, c)
 
 
-def gather_neighbor_mean(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Neighbour mean straight from the [..., N, K] id lists (the JAX
-    ``gather_neighbor_mean``): a gather of [..., N, K, C], summed in fp32,
-    times 1/K, cast back to the features' dtype."""
+def gather_neighbors(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Each point's neighbours' features: [..., N, C] features and
+    [..., Nr, K] ids (int32 or int64) -> [..., Nr, K, C] in the features'
+    dtype, row r's K rows in its list's order."""
     *lead, n, c = features.shape
     k = idx.shape[-1]
     f = features.reshape(-1, n, c)
     flat = idx.reshape(f.shape[0], -1, 1).long()  # torch.gather takes int64
-    nbr = torch.gather(f, 1, flat.expand(-1, -1, c)).reshape(*lead, idx.shape[-2], k, c)
+    return torch.gather(f, 1, flat.expand(-1, -1, c)).reshape(*lead, idx.shape[-2], k, c)
+
+
+def gather_neighbor_mean(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Neighbour mean straight from the [..., N, K] id lists (the JAX
+    ``gather_neighbor_mean``): ``gather_neighbors``, summed in fp32, times
+    1/K, cast back to the features' dtype."""
+    nbr = gather_neighbors(features, idx)
     wide = torch.promote_types(features.dtype, torch.float32)  # fp32 (fp64 stays)
-    return (nbr.to(wide).sum(-2) * (1.0 / k)).to(features.dtype)
+    return (nbr.to(wide).sum(-2) * (1.0 / idx.shape[-1])).to(features.dtype)

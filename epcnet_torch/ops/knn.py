@@ -9,14 +9,18 @@
   (``fmt="dense"``: K1) or as int32 bit planes [N, N/32] (``fmt="packed"``:
   K3); both kernels are in ``csrc/knn_adj.cu``. A CPU tensor takes the plain
   version beside each kernel.
+- ``knn_features`` gives each point's k nearest ids in feature space (bf16
+  [B, N, D] on the card): K8 (``csrc/knn_features.cu``) on a CUDA tensor,
+  ``knn_features_plain`` on a CPU tensor. DGCNN-VLAD's layers 1.. use it.
 
-K1, K2 and K3 run on the tiled selection core (``csrc/knn_tile.cuh``: a
+K1, K2, K3 and K8 run on the tiled selection core (``csrc/knn_tile.cuh``: a
 block of query rows streams the cloud through shared memory, each thread
-keeps a register top-k) for k up to its register list (32), and on the
+keeps a register top-k) for k up to its register list (32), and K1-K3 on the
 warp-per-row value rounds of ``csrc/knn_core.cuh`` above it: a rule on k
-that each kernel's C entry applies and reports, never a fallback. There is
-no fallback from a kernel to its plain version either. Order everywhere:
-ascending fp32 distance, then ascending index — the order of
+that each kernel's C entry applies and reports, never a fallback (K8
+refuses k > 32). There is no fallback from a kernel to its plain version
+either. Order everywhere:
+ascending fp32 distance (K8: score), then ascending index — the order of
 ``jax.lax.top_k(-d)``.
 """
 
@@ -246,3 +250,90 @@ def knn_adjacency(x: torch.Tensor, k: int, dtype=torch.bfloat16,
     adj, proxy = launch(x.reshape(-1, n, d), k, dtype, with_proxy)
     adj = adj.reshape(*lead, n, adj.shape[-1])
     return adj, (proxy.reshape(*lead, n, d) if with_proxy else None)
+
+
+# K8's feature widths: multiples of 16 (the tensor cores' depth) up to 256;
+# its k: up to the tiled core's register list (csrc/knn_tile.cuh kMaxK)
+FEATURE_DEPTH = 16
+MAX_FEATURE_DIM = 256
+TILED_MAX_K = 32
+# rows of the plain version's [rows, N] scores at a time
+FEATURE_BLOCK_ROWS = 1024
+
+
+def knn_features_plain(f: torch.Tensor, k: int) -> torch.Tensor:
+    """K8's plain version: each point's k nearest ids by the score
+    ``||f_j||^2 - 2 <f_i, f_j>`` (the squared distance without the row's
+    own norm), nearest first, self included, ties to the lower index (a
+    stable sort). The features are widened to fp32 (fp64 stays), so the
+    products of bf16 values are exact and the sums fp32, as in the kernel;
+    ``2 <.,.>`` is exact and the difference rounded once. A block of
+    ``FEATURE_BLOCK_ROWS`` rows at a time.
+
+    Args:
+      f: [..., N, D] features. k: 1 <= k <= N.
+
+    Returns:
+      idx [..., N, k] int32.
+    """
+    n = f.shape[-2]
+    _check_k(k, n)
+    x = f.to(torch.promote_types(f.dtype, torch.float32))
+    norms = (x * x).sum(-1)  # [..., N]
+    ids = []
+    for r0 in range(0, n, FEATURE_BLOCK_ROWS):
+        s = norms[..., None, :] - 2 * torch.matmul(x[..., r0:r0 + FEATURE_BLOCK_ROWS, :],
+                                                   x.transpose(-1, -2))
+        ids.append(torch.sort(s, dim=-1, stable=True).indices[..., :k].to(torch.int32))
+        del s
+    return torch.cat(ids, dim=-2)
+
+
+def knn_features_cuda(f: torch.Tensor, k: int) -> torch.Tensor:
+    """Launch K8 on ``torch.cuda.current_stream()``. f: [B, N, D] bf16 on
+    the card, D a multiple of 16 up to 256, 1 <= k <= min(N, 32). Returns
+    ids [B, N, k] int32 (the fp32 norms are scratch allocated here). Each
+    launch adds one to ``knn_features_cuda.launches``."""
+    if f.device.type != "cuda":
+        raise ValueError(f"K8 takes a CUDA tensor, got {f.device}")
+    if f.dim() != 3 or f.dtype != torch.bfloat16:
+        raise ValueError(f"K8 takes bf16 features [B, N, D], got {f.dtype} {tuple(f.shape)}")
+    b, n, d = f.shape
+    if d % FEATURE_DEPTH or not FEATURE_DEPTH <= d <= MAX_FEATURE_DIM:
+        raise ValueError(f"K8 takes D a multiple of {FEATURE_DEPTH} up to "
+                         f"{MAX_FEATURE_DIM}, got {d}")
+    _check_k(k, n)
+    if k > TILED_MAX_K:
+        raise ValueError(f"K8 takes k <= {TILED_MAX_K} (its register list), got {k}")
+    f = f.contiguous()
+    if f.data_ptr() % 16:  # the kernel reads 16-byte chunks
+        f = f.clone()
+    ids = torch.empty((b, n, k), dtype=torch.int32, device=f.device)
+    norms = torch.empty((b, n), dtype=torch.float32, device=f.device)
+    with torch.cuda.device(f.device):
+        _build.launch("knn_features", "knn_features_launch", "piiiippp", f.data_ptr(), b, n,
+                      d, k, norms.data_ptr(), ids.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
+    knn_features_cuda.launches += 1
+    return ids
+
+
+knn_features_cuda.launches = 0
+
+
+def knn_features(f: torch.Tensor, k: int) -> torch.Tensor:
+    """Each point's k nearest ids in feature space, nearest first, self
+    included, ties to the lower index.
+
+    Args:
+      f: [..., N, D] features (bf16 on the card, D a multiple of 16 up to
+        256). k: 1 <= k <= N (k <= 32 on the card).
+
+    Returns:
+      idx [..., N, k] int32: K8 on a CUDA tensor (which raises on what it
+      does not take), ``knn_features_plain`` on a CPU tensor.
+    """
+    if f.device.type == "cpu":
+        return knn_features_plain(f, k)
+    *lead, n, d = f.shape
+    return knn_features_cuda(f.reshape(-1, n, d), k).reshape(*lead, n, k)

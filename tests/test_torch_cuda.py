@@ -12,7 +12,11 @@ relative in fp32 (K6's too). K4 sums the set rows of F in fp32 where its
 twin runs cuBLAS, so the two differ by fp32 rounding of the sum, at most about 1e-6 of the mean of
 |F| over the row's set bits: bf16 results within 1 bf16 ulp plus that, fp32
 results within that. K7 likewise, and bit-equal to its twin on features on
-a grid of 1/64, where any order of the fp32 sum is exact.
+a grid of 1/64, where any order of the fp32 sum is exact. K8 sums exact
+bf16 products in fp32 on the tensor cores, its twin through cuBLAS: rank
+by rank their scores agree within fp32's rounding of a D-term sum (a
+near-tie may swap), and on a coarse grid, where every sum is exact, the
+ids are equal.
 """
 
 import os
@@ -342,6 +346,90 @@ def test_gather_mean_takes_int32_ids(cuda):
     got = adjacency.gather_neighbor_mean(f, ids)
     want = adjacency.gather_neighbor_mean(f, ids.long())
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def _k8_scores64(f):
+    """fp64 scores ||f_j||^2 - 2 <f_i, f_j> [B, N, N] of bf16 features, and
+    each row's near-tie epsilon: 2^-16 (D = 256 terms at fp32's 2^-24, the
+    most two fp32 sums of the same exact products can differ by) times
+    ||f_i||^2 + the cloud's largest ||f_j||^2."""
+    x = f.double()
+    nrm = (x * x).sum(-1)
+    s = nrm[:, None, :] - 2 * x @ x.transpose(1, 2)
+    return s, 2.0 ** -16 * (nrm + nrm.amax(-1, keepdim=True))[..., None]
+
+
+def _k8_check(f, k):
+    """K8 against its plain twin on the same bf16 features: ids equal, or,
+    rank by rank, scores within the row's near-tie epsilon of each other."""
+    before = knn.knn_features_cuda.launches
+    got = knn.knn_features(f, k)
+    assert knn.knn_features_cuda.launches == before + 1
+    want = knn.knn_features_plain(f, k)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    s, eps = _k8_scores64(f)
+    gap = (s.gather(-1, got.long()) - s.gather(-1, want.long())).abs()
+    assert bool((gap <= eps).all()), float((gap - eps).max())
+    return float((got != want).any(-1).double().mean())
+
+
+@pytest.mark.parametrize("b,n,d,k", [
+    (2, 4096, 64, 20),  # the model's layers 1-2
+    (2, 4096, 128, 20),  # its layer 3
+    (32, 4096, 64, 20),  # the benchmark's batch
+    (1, 1000, 16, 32),  # k at the register list's size, a partial tile
+    (3, 333, 256, 7),  # the widest D
+    (1, 65, 64, 20),  # one point past a tile
+])
+def test_k8_matches_plain(cuda, b, n, d, k):
+    g = torch.Generator(device=cuda).manual_seed(b * n + d)
+    f = torch.randn(b, n, d, generator=g, device=cuda).to(torch.bfloat16)
+    _k8_check(f, k)
+
+
+@pytest.mark.parametrize("d,grid", [(64, 4), (128, 2), (256, 1)])
+def test_k8_exact_on_a_grid(cuda, d, grid):
+    """Features on a coarse grid: every product and partial sum is exact in
+    fp32, so K8 equals its twin id for id, ties (many, and a duplicate point)
+    to the lower index, self in every list."""
+    rng = np.random.default_rng(d)
+    f = torch.tensor(np.round(rng.uniform(-1, 1, (2, 2000, d)) * grid) / grid,
+                     dtype=torch.bfloat16, device=cuda)
+    f[:, 9] = f[:, 4]
+    got = knn.knn_features(f, 20)
+    assert torch.equal(got, knn.knn_features_plain(f, 20))
+    rows = torch.arange(2000, device=cuda)
+    assert bool((got.long() == rows[None, :, None]).any(-1).all())
+
+
+def test_k8_rejects_bad_input(cuda):
+    f = torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=cuda)
+    for bad, match in ((f.float(), "bf16"), (f[..., :40], "multiple"), (f[:, :10], "k=")):
+        with pytest.raises(ValueError, match=match):
+            knn.knn_features_cuda(bad, 20)
+    with pytest.raises(ValueError, match="k <= 32"):
+        knn.knn_features_cuda(f, 33)
+
+
+def test_dgcnn_vlad_on_card(cuda):
+    """DGCNN-VLAD through ``build_embed_fn`` on the card: one K2 and three K8
+    a forward, no K1 and no K7, against the same weights on the CPU (the
+    plain twins) within the CPU tests' bf16 limit (2e-2: the two sides'
+    fp32 sums swap near-tie neighbours)."""
+    from epcnet_torch.configs import dgcnn_vlad_config
+
+    cfg = dgcnn_vlad_config(num_points=1024)
+    flat = init_flat_variables(cfg, seed=4)
+    embed = build_embed_fn(cfg, device=cuda, variables=flat)
+    x = _cloud(12, 4, 1024, cuda)
+    counters = (knn.knn_cuda, knn.knn_features_cuda, knn.knn_adjacency_cuda,
+                adjacency.indicator_neighbor_mean_cuda)
+    before = [c.launches for c in counters]
+    d = embed(x)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 0, 0]
+    d_cpu = build_embed_fn(cfg, device="cpu", variables=flat)(x.cpu())
+    assert d.shape == (4, 256) and bool(torch.isfinite(d).all())
+    assert float((d.cpu() - d_cpu).norm(dim=1).max()) <= 2e-2
 
 
 def test_model_kernel_path_matches_plain_twin(cuda):

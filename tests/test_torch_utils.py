@@ -69,6 +69,23 @@ def test_top_device_ops_ranks_a_cpu_profile(tmp_path):
     assert all(r["total_ms"] > 0 for r in regions.values())
 
 
+def test_gather_route_means_are_a_span():
+    """On the gather route each layer's mean (``gather_neighbor_mean``) is
+    the span ``epcnet/neighbor_mean``, beside the kNN graph's, so that the
+    benchmark's ``embed.adjacency_ms`` reads the route's graph work whole."""
+    cfg = ModelConfig(num_points=64, knn_k=6, proxyconv_channels=(8, 8, 8, 16),
+                      lift_channels=(32, 64), feature_dim=64, vlad_clusters=4,
+                      vlad_groups=2, vlad_group_dim=8, adjacency_format="gather")
+    embed = build_embed_fn(cfg, device="cpu")
+    x = np.random.default_rng(1).uniform(-1, 1, (2, 64, 3)).astype(np.float32)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        embed(x)
+    regions = region_ms(prof, "epcnet/")
+    assert regions["epcnet/knn_graph"]["count"] == 1
+    assert regions["epcnet/neighbor_mean"]["count"] == 4  # every layer, layer 0 included
+    assert "epcnet/indicator_cast" not in regions
+
+
 def test_start_trace_writes_a_chrome_trace_into_a_new_directory(tmp_path):
     out = tmp_path / "a" / "b"
     with start_trace(str(out)) as prof:
