@@ -6,10 +6,11 @@
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
 ``knn_phase.cu``, K6 ``knn_pipelined.cu``, K7 ``indicator_mean.cu``, K8
-``knn_features.cu``; K1-K3, K5, K6 and K8 on the tiled core ``knn_tile.cuh``
-for k (K5: rounds) <= 32; the ptxas report of every tiled kernel, of K4 and
-of K7 must show no spill), holds each against its plain
-PyTorch version on the card, runs DGCNN-VLAD ("dgcnn_vlad":
+``knn_features.cu``, K9 ``bn_act.cu``; K1-K3, K5, K6 and K8 on the tiled
+core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the ptxas report of every
+tiled kernel, of K4, K7 and K9 must show no spill), holds each against its
+plain PyTorch version on the card (K9 bit-equal at the main path's shapes,
+131,072 and 2,621,440 rows), runs DGCNN-VLAD ("dgcnn_vlad":
 ``dgcnn_vlad_phase``), builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
@@ -22,7 +23,8 @@ random weights, and serves it on each adjacency route:
 Every submap must retrieve itself at rank 0. Kernel launch counts are zeroed
 just before each serving run and read just after it; the dense route's
 serving forwards launch K7 three times a K1 (layers 1-3 read the int8
-indicator), and the training steps never. At N=32768 the three
+indicator) and K9 six times (each BN with its ReLU), and the training steps
+neither. At N=32768 the three
 routes also run side by side on the same clouds and weights, and their
 descriptors must agree.
 
@@ -131,8 +133,8 @@ protocol through the CLIs (``multiseed.run``: 5 x 80 x 4096, 15 epochs,
 lr 2e-4, mining from epoch 5), recall@1 held to ``multiseed.BAND``'s
 teacher floor (JAX's 92.48% less 5 points), K1 counted by train steps,
 mining and evaluation; "compile cache" runs ``cli/benchmark.py`` in a
-process with ``--compilation_cache_dir`` a fresh directory (K1's, K2's and
-K7's libraries built there) and again in a process with no nvcc to find, which
+process with ``--compilation_cache_dir`` a fresh directory (K1's, K2's, K7's
+and K9's libraries built there) and again in a process with no nvcc to find, which
 loads them from there.
 
 Output: progress lines with each phase's seconds, then a ``{"kernels":
@@ -178,8 +180,9 @@ from epcnet_torch.data import load_pc_files_native, load_pickle, native_availabl
 from epcnet_torch.evals import embed_entries, evaluate_dataset, get_recall
 from epcnet_torch.models import get_model, param_count
 from epcnet_torch.models.epcnet import adjacency_route
+from epcnet_torch.models.layers import DynamicBatchNorm
 from epcnet_torch.models.vlad_head import compute_dtype
-from epcnet_torch.ops import _build, adjacency, knn, knn_phases, sampling
+from epcnet_torch.ops import _build, adjacency, bn_act, knn, knn_phases, sampling
 from epcnet_torch.ops.matmul import matmul_f32acc
 from epcnet_torch.parallel.collectives import GLOO_CUDA_OPS
 from epcnet_torch.scripts import (
@@ -240,6 +243,7 @@ COUNTERS = {
     "K6 k>32": (knn_phases.knn_adjacency_pipelined_cuda, "launches_rounds"),
     "K7": (adjacency.indicator_neighbor_mean_cuda, "launches"),
     "K8": (knn.knn_features_cuda, "launches"),
+    "K9": (bn_act.bn_act_cuda, "launches"),
 }
 
 
@@ -541,6 +545,37 @@ def check_k8(f: torch.Tensor, k: int) -> float:
     return float((got != want).any(-1).double().mean())
 
 
+def k9_case(rows: int, c: int, dev, seed: int):
+    """bf16 x [rows, c] and fp32 BN vectors (mean, var, scale, bias) away
+    from their identity start."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, c, device=dev, generator=g) * 2).to(torch.bfloat16)
+    return x, (torch.randn(c, device=dev, generator=g) * 0.5,
+               torch.rand(c, device=dev, generator=g) * 2 + 0.05,
+               torch.randn(c, device=dev, generator=g) * 0.4 + 1,
+               torch.randn(c, device=dev, generator=g) * 0.3)
+
+
+# K9's shapes on the main path: EPC-Net's BNs at B=32, N=4096 (ProxyConv
+# 64/128, the lift 256/1024) and DGCNN-VLAD's over the edges, B·N·k rows
+K9_SHAPES = ((131072, 64), (131072, 128), (131072, 256), (131072, 1024),
+             (2621440, 64), (2621440, 128), (2621440, 256))
+
+
+def check_k9(dev) -> list:
+    """K9 bit-equal to its plain version at ``K9_SHAPES``, with ReLU (EPC-Net's
+    eps) and LeakyReLU 0.2 (DGCNN-VLAD's)."""
+    for rows, c in K9_SHAPES:
+        x, v = k9_case(rows, c, dev, rows + c)
+        for slope, eps in ((0.0, 1e-3), (0.2, 1e-5)):
+            got = bn_act.bn_act_cuda(x, *v, eps, slope)
+            want = bn_act.bn_act_plain(x, *v, eps, slope)
+            assert torch.equal(got, want), (rows, c, slope, int((got != want).sum()))
+            del got, want
+    torch.cuda.empty_cache()
+    return [list(s) for s in K9_SHAPES]
+
+
 def plain_dgcnn_vlad():
     """``tests/plain_dgcnn_vlad.py``, the plain reference (torch only)."""
     import importlib.util
@@ -556,7 +591,7 @@ def plain_dgcnn_vlad():
 def dgcnn_vlad_phase(dev) -> dict:
     """DGCNN-VLAD at the published widths, B=32 submaps of N=4096 through
     ``build_embed_fn`` and ``PlaceIndex.embed``, launch counts zeroed
-    before it: one K2 and three K8 a forward, no K1 and no K7. The first 8
+    before it: one K2, three K8 and five K9 a forward, no K1 and no K7. The first 8
     submaps' descriptors against the plain fp32 reference (a cloud at a
     time), with the share of points whose layer-1..3 neighbour sets differ
     from the reference's; K8 against its plain twin on the model's own
@@ -575,7 +610,8 @@ def dgcnn_vlad_phase(dev) -> dict:
     zero_counts()
     desc = ix.embed(sub)
     counts = read_counts()
-    assert (counts["K2"], counts["K8"], counts["K1"], counts["K7"]) == (1, 3, 0, 0), counts
+    assert (counts["K2"], counts["K8"], counts["K9"], counts["K1"], counts["K7"]) == \
+        (1, 3, 5, 0, 0), counts
 
     x = torch.tensor(sub, device=dev)
     plain = plain_dgcnn_vlad()
@@ -741,6 +777,8 @@ def evaluate_phase(embed, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         x32 = torch.tensor(load_pc_files_native([db_sets[0][i]["query"] for i in range(32)],
                                                 root, n), device=dev)
         zero_counts()
+        forwards = []
+        hook = embed_p.model.register_forward_hook(lambda *_: forwards.append(1))
         t0 = time.perf_counter()
         d = embed_p(x32)
         assert d.shape == (32, 256) and bool(torch.isfinite(d).all())
@@ -750,7 +788,13 @@ def evaluate_phase(embed, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         res_p = evaluate_dataset(embed_p, regions, exp.data, exp.eval)["average"]
         torch.cuda.synchronize()
         pnv_s["evaluate_dataset"] = time.perf_counter() - t0
-        assert not any(read_counts().values()), read_counts()  # no kernel of the port's
+        hook.remove()
+        # no kNN kernel of the port's; K9 at each BN of every forward
+        pnv_counts = read_counts()
+        bns = sum(isinstance(m, DynamicBatchNorm) for m in embed_p.model.modules())
+        k9 = pnv_counts.pop("K9")
+        assert bns == 15 and len(forwards) > 1 and k9 == bns * len(forwards), (k9, forwards)
+        assert not any(pnv_counts.values()), pnv_counts
         pnv_ms = cuda_ms(lambda: embed_p(x32), 5)
         epc_ms = cuda_ms(lambda: embed(x32), 5)
     log(f"phase pointnetvlad: {PNV_PARAMS} params; untrained recall@1 {res_p['recall_at'][0]}, "
@@ -1064,6 +1108,7 @@ def train_phases(dev, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
         assert all(np.isfinite(dloss)) and mimic[-1] < mimic[0], (dloss, mimic)
         assert counts["distill"]["K1"] == 20, counts["distill"]  # student + teacher a step
         assert counts["distill"]["K7"] == 30, counts["distill"]  # the eval teacher's layers
+        assert counts["distill"]["K9"] == 60, counts["distill"]  # and its six BNs
         del st, teacher
         torch.cuda.empty_cache()
     res["distill"] = {"mimic_loss": mimic, "loss": dloss}
@@ -1554,9 +1599,9 @@ def train_quality_phase(dev, tmp: str) -> tuple[dict, dict]:
 
 
 def compile_cache_phase(tmp: str) -> dict:
-    """``cli/benchmark.py`` (K1, K2, and K7 in its eval embed) in a process of
-    its own with ``--compilation_cache_dir`` a fresh directory: the three
-    libraries are built there, by their content-addressed names; a second process with no
+    """``cli/benchmark.py`` (K1, K2, and K7 and K9 in its eval embed) in a
+    process of its own with ``--compilation_cache_dir`` a fresh directory: the
+    four libraries are built there, by their content-addressed names; a second process with no
     nvcc to find (``CUDA_HOME`` empty, ``PATH`` without it) loads them
     from there and builds nothing."""
     cache = os.path.join(tmp, "kernel_cache")
@@ -1572,7 +1617,7 @@ def compile_cache_phase(tmp: str) -> dict:
         try:
             compile_cache.enable_compilation_cache(cache)
             want = sorted(_build._target(name)[1].name
-                          for name in ("knn_adj", "knn_ids", "indicator_mean"))
+                          for name in ("knn_adj", "knn_ids", "indicator_mean", "bn_act"))
         finally:
             _build.BUILD_DIR = real_dir
         built = {f: os.stat(os.path.join(cache, f)).st_mtime_ns for f in os.listdir(cache)}
@@ -1635,7 +1680,9 @@ def main() -> int:
                # K7: 2 x 2 dtypes and 4 channel widths
                "indicator_mean": ("indicator_mean_kernel", 16),
                # K8: the two list sizes
-               "knn_features": ("knn_features_tiled_kernel", 2)}
+               "knn_features": ("knn_features_tiled_kernel", 2),
+               # K9: ReLU and LeakyReLU
+               "bn_act": ("bn_act_kernel", 2)}
     spills = {}
     for src, (part, count) in watched.items():
         if src in reports:
@@ -1646,7 +1693,7 @@ def main() -> int:
     dense = sum("dense_tiled" in name for name in spills)
     assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
     log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
-        "them K1's, K5's and K6's on it, K4's, K7's and K8's)" if spills else
+        "them K1's, K5's and K6's on it, K4's, K7's, K8's and K9's)" if spills else
         "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
@@ -1786,6 +1833,11 @@ def main() -> int:
     log(f"phase K7 check: ok (bit-equal on the 1/64 grid and max abs err {err_k7} by C on "
         "random features at B=32, N=4096; C = 3, 128, 300, fp32, edited rows, N = 1025, "
         "4097 and 16384)")
+
+    # -- 5''. K9 against its plain version --------------------------------
+    with Phase("K9 check"):
+        k9_checked = check_k9(dev)
+    log(f"phase K9 check: bit-equal at {k9_checked}, ReLU and LeakyReLU 0.2")
 
     # -- 5b. K5 and K6 against their plain versions ------------------------
     with Phase("K5/K6 check"):
@@ -1936,6 +1988,8 @@ def main() -> int:
     assert dense_counts["K1 k>32"] == 0, dense_counts  # k=20: every K1 ran tiled
     # every forward of the eval dense route: K7 in layers 1-3, no cast
     assert dense_counts["K7"] == 3 * dense_counts["K1"], dense_counts
+    # and K9 at its six BNs
+    assert dense_counts["K9"] == 6 * dense_counts["K1"], dense_counts
     log(f"phase serve: {requests} requests answered; launches {dense_counts}")
 
     # -- 10. serving on the capacity routes, launch counts zeroed ----------
@@ -2173,6 +2227,29 @@ def main() -> int:
                   library="ind.to(bf16) then torch.bmm(out_dtype=torch.float32)")
             del f_c
         del ind32
+
+        # K9: eval BN + activation at EPC-Net's lift (131,072 x 1024, ReLU) and
+        # DGCNN-VLAD's layer 3 edges (2,621,440 x 256, LeakyReLU 0.2), bf16;
+        # beside it the chain it replaced, through the module
+        for (rows, c_), (slope, eps) in (((131072, 1024), (0.0, 1e-3)),
+                                          ((2621440, 256), (0.2, 1e-5))):
+            x9, v9 = k9_case(rows, c_, dev, rows + c_)
+            bn9 = DynamicBatchNorm(c_, eps).to(dev)
+            with torch.no_grad():
+                for buf, val in zip((bn9.mean, bn9.var, bn9.scale, bn9.bias), v9):
+                    buf.copy_(val)
+            with torch.inference_mode():
+                ms_k9 = cuda_ms(lambda: bn_act.bn_act_cuda(x9, *v9, eps, slope), 20)
+                plain_k9 = cuda_ms(lambda: bn_act.bn_act_plain(x9, *v9, eps, slope), 5)
+                lib_k9 = cuda_ms(lambda: bn_act.activation(bn9(x9), slope), 5)
+            entry("bn_act", "bn_act.cu", "none: eval BN's affine map and the activation, "
+                  "which XLA fuses into the Dense's epilogue (epcnet_tpu/models/layers.py)",
+                  dense_counts["K9"], 0.0, ms_k9, plain_k9, 2 * 2 * x9.numel(),
+                  8 * x9.numel(), [rows, c_], "K9", library_ms=lib_k9,
+                  library="DynamicBatchNorm in eval, then F.relu / F.leaky_relu",
+                  negative_slope=slope)
+            del x9, bn9
+        torch.cuda.empty_cache()
 
         # K5 and K6: the trace path's shape, B=8, N=4096; their times are the
         # trace phase's (K5: phase C, k distinct values and the count)

@@ -43,7 +43,6 @@ Spans (``profile_region``): ``dgcnn/knn_{i}`` (each layer's graph),
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from epcnet_torch.configs import ModelConfig
@@ -71,7 +70,7 @@ class EdgeConv(nn.Module):
         nbr = gather_neighbors(features, ids)  # [..., N, k, C]
         ctr = features.unsqueeze(-2).expand_as(nbr)
         edges = torch.cat([nbr - ctr, ctr], dim=-1)
-        h = F.leaky_relu(self.bn(self.dense(edges), train, momentum), LEAKY_SLOPE)
+        h = self.bn.forward_act(self.dense(edges), train, momentum, LEAKY_SLOPE)
         # amax, as the authors' max, splits the gradient evenly among ties
         return h.amax(dim=-2)
 

@@ -20,10 +20,10 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from epcnet_torch.ops.adjacency import indicator_neighbor_mean, neighbor_mean
+from epcnet_torch.ops.bn_act import activation, bn_act, bn_affine
 from epcnet_torch.parallel.collectives import all_reduce_sum, group_size
 from epcnet_torch.utils.profiling import profile_region
 
@@ -94,8 +94,24 @@ class DynamicBatchNorm(nn.Module):
             self.pending = (mean.detach(), var.detach(), momentum)
         else:
             mean, var = self.mean, self.var
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).to(x.dtype)
+        return bn_affine(xf, mean, var, self.scale, self.bias, self.epsilon, x.dtype)
+
+    def forward_act(self, x: torch.Tensor, train: bool = False, momentum=0.9,
+                    negative_slope: float = 0.0) -> torch.Tensor:
+        """``activation(self(x, train, momentum), negative_slope)``: ReLU, or
+        LeakyReLU with ``negative_slope``. In eval on bf16, where no autograd
+        graph is built, the two go as one pass, ``ops.bn_act``: the chain's
+        own arithmetic on the CPU, K9 on the card (which raises on an input
+        it does not take), bit-equal to the chain. fp32 and fp64 models keep
+        the chain: a model of ``compute_dtype="float32"`` embeds on the card
+        too (the points-sharded fp32 embed of ``scripts/multidevice.py``)."""
+        if (not train and x.dtype == torch.bfloat16
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or self.scale.requires_grad
+                              or self.bias.requires_grad))):
+            return bn_act(x, self.mean, self.var, self.scale, self.bias, self.epsilon,
+                          negative_slope)
+        return activation(self(x, train, momentum), negative_slope)
 
 
 @torch.no_grad()
@@ -152,9 +168,8 @@ class SharedMLP(nn.Module):
         for i in range(len(self.widths)):
             x = getattr(self, f"dense_{i}")(x)
             if hasattr(self, f"bn_{i}"):
-                x = getattr(self, f"bn_{i}")(x, train, momentum)
-                x = (F.leaky_relu(x, self.negative_slope) if self.negative_slope
-                     else F.relu(x))
+                x = getattr(self, f"bn_{i}").forward_act(x, train, momentum,
+                                                         self.negative_slope)
         return x
 
 
@@ -184,7 +199,7 @@ class ProxyConv(nn.Module):
                     proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
                                           adjacency_scale=1.0 / self.knn_k)
         h = torch.cat([proxy - features, features], dim=-1)
-        return F.relu(self.bn(self.dense(h), train, momentum))
+        return self.bn.forward_act(self.dense(h), train, momentum)
 
 
 class TNet(nn.Module):

@@ -16,7 +16,9 @@ a grid of 1/64, where any order of the fp32 sum is exact. K8 sums exact
 bf16 products in fp32 on the tensor cores, its twin through cuBLAS: rank
 by rank their scores agree within fp32's rounding of a D-term sum (a
 near-tie may swap), and on a coarse grid, where every sum is exact, the
-ids are equal.
+ids are equal. K9 computes eval BN and its activation in the chain's order
+of fp32 operations, each rounded on its own: its output and the models'
+descriptors through it are bit-equal to the chain's.
 """
 
 import os
@@ -28,9 +30,13 @@ import torch
 from epcnet_torch.configs import ModelConfig, pointnetvlad_config
 from epcnet_torch.evals import get_recall, retrieval_latency_probe
 from epcnet_torch.ops import adjacency, knn, knn_phases
+from epcnet_torch.ops.bn_act import bn_act_cuda, bn_act_plain
 from epcnet_torch.serve import PlaceIndex
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.weights import init_flat_variables
+
+from chip_smoke import k9_case
+from test_torch_bn_act import _chain, _seed_bn
 
 pytestmark = pytest.mark.cuda
 BF16_ULP = 2.0 ** -7
@@ -409,6 +415,130 @@ def test_k8_rejects_bad_input(cuda):
             knn.knn_features_cuda(bad, 20)
     with pytest.raises(ValueError, match="k <= 32"):
         knn.knn_features_cuda(f, 33)
+
+
+@pytest.mark.parametrize("slope,eps", [(0.0, 1e-3), (0.2, 1e-5)], ids=["relu", "leaky"])
+@pytest.mark.parametrize("rows,c", [(131072, 64), (131072, 128), (131072, 256),
+                                    (131072, 1024), (2621440, 64), (2621440, 128),
+                                    (2621440, 256)])
+def test_k9_matches_plain(cuda, rows, c, slope, eps):
+    """The main path's shapes: EPC-Net's BNs at B=32, N=4096 (131,072 rows)
+    and DGCNN-VLAD's over the edges (2,621,440 rows); bit-equal."""
+    x, v = k9_case(rows, c, cuda, rows + c)
+    before = bn_act_cuda.launches
+    got = bn_act_cuda(x, *v, eps, slope)
+    assert bn_act_cuda.launches == before + 1
+    want = bn_act_plain(x, *v, eps, slope)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("slope", [0.0, 0.2])
+def test_k9_ties_and_signed_zeros(cuda, slope):
+    """Rounding ties to bf16 (inv = 1 exactly, x = +-2^j times scales of
+    1 + 2^-8: bf16 midpoints, and just off them), signed zeros (x equal to
+    the mean, scales of either sign, biases of -0 and +0), zero scales whose
+    sum is the bias, and denormal inputs; bit-equal to the plain chain on
+    the card, the sign of every zero included."""
+    rows, c, eps = 8192, 64, 2.0 ** -10
+    x, (mean, var, scale, bias) = k9_case(rows, c, cuda, 5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    mean = mean.to(torch.bfloat16).float()
+    var[:] = 1 - eps  # var + eps = 1 exactly
+    pow2 = torch.exp2(torch.randint(-3, 4, (rows, 16), device=cuda, generator=g).float())
+    sign = torch.randint(0, 2, (rows, 16), device=cuda, generator=g).float() * 2 - 1
+    x[:, :16] = (pow2 * sign).to(torch.bfloat16)
+    mean[:16] = 0
+    scale[:8], scale[8:16] = 1 + 2.0 ** -8, -(1 + 2.0 ** -8) + 2.0 ** -20
+    bias[:16] = 0
+    x[:, 16:32] = mean[16:32].to(torch.bfloat16)  # x - mean = +0
+    scale[16:24] *= -1
+    bias[16:32] = torch.tensor([-0.0, 0.0], device=cuda).repeat(8)
+    scale[32:40] = 0
+    bias[32:40] = torch.tensor([-0.0, 0.0, 1 + 2.0 ** -8, -(1 + 2.0 ** -8), 1e-40, -1e-40,
+                                3 * 2.0 ** -9, 2.0 ** -130], device=cuda)
+    x[::7, 40:] = torch.tensor(1e-39, dtype=torch.bfloat16)
+    x[1::7, 40:] = -0.0
+    y = ((x.float() - mean) * torch.rsqrt(var + eps)) * scale + bias
+    ties = int(((y.view(torch.int32) & 0xFFFF) == 0x8000).sum())
+    assert ties >= 8 * rows, ties
+    assert bool((torch.signbit(y) & (y == 0)).any())
+    got = bn_act_cuda(x, mean, var, scale, bias, eps, slope)
+    want = bn_act_plain(x, mean, var, scale, bias, eps, slope)
+    assert torch.equal(got, want) and torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+def test_k9_rejects_bad_input(cuda):
+    x, v = k9_case(64, 16, cuda, 0)
+    cases = ((x.float(), v, "bf16"), (x[:, :12], [t[:12] for t in v], "multiple of 8"),
+             (x.t(), v, "contiguous"), (x.view(-1)[4:-12].view(63, 16), v, "contiguous"),
+             (x.cpu(), v, "one card"), (x, [t.cpu() for t in v], "one card"),
+             (x, [t.double() for t in v], "fp32"), (x, [t[:8] for t in v], "fp32"))
+    for bad_x, bad_v, match in cases:
+        with pytest.raises(ValueError, match=match):
+            bn_act_cuda(bad_x, *bad_v, 1e-3)
+
+
+@pytest.mark.parametrize("case,match", [("c12", "multiple of 8"), ("strided", "contiguous"),
+                                        ("bf16_stats", "fp32")])
+def test_k9_forward_act_raises_on_what_k9_does_not_take(cuda, case, match):
+    """On the card an eval bf16 ``forward_act`` launches K9 whatever its
+    input, and K9 raises on C % 8 != 0, a strided input and statistics not
+    in fp32, rather than hand the chain the input unseen."""
+    from epcnet_torch.models.layers import DynamicBatchNorm
+
+    c = 12 if case == "c12" else 16
+    bn = DynamicBatchNorm(c).to(cuda)
+    _seed_bn(bn, torch.Generator(device=cuda).manual_seed(4))
+    if case == "bf16_stats":
+        bn.to(torch.bfloat16)
+    x, _ = k9_case(40, 2 * c if case == "strided" else c, cuda, 8)
+    if case == "strided":
+        x = x[:, ::2]
+    with torch.inference_mode(), pytest.raises(ValueError, match=match):
+        bn.forward_act(x, False, 0.9, 0.2)
+
+
+@pytest.mark.parametrize("name,launches", [("epcnet", 6), ("epcnet_l", 6),
+                                           ("dgcnn_vlad", 5)])
+def test_k9_on_the_eval_forward(cuda, name, launches, monkeypatch):
+    """K9 once at every BN of an eval forward (6 for EPC-Net and EPC-Net-L,
+    5 for DGCNN-VLAD), with descriptors bit-equal to the same forward
+    through the chain."""
+    from epcnet_torch.configs import dgcnn_vlad_config, epcnet_l_config
+    from epcnet_torch.models.layers import DynamicBatchNorm
+
+    cfg = {"epcnet": ModelConfig, "epcnet_l": epcnet_l_config,
+           "dgcnn_vlad": dgcnn_vlad_config}[name](num_points=1024)
+    embed = build_embed_fn(cfg, device=cuda, variables=init_flat_variables(cfg, seed=3))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for mod in embed.model.modules():
+        if isinstance(mod, DynamicBatchNorm):
+            _seed_bn(mod, g)
+    x = _cloud(21, 4, 1024, cuda)
+    before = bn_act_cuda.launches
+    got = embed(x)
+    assert bn_act_cuda.launches - before == launches
+    monkeypatch.setattr(DynamicBatchNorm, "forward_act", _chain)
+    want = embed(x)
+    assert bn_act_cuda.launches - before == launches
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+
+def test_k9_not_in_a_training_step(cuda):
+    """A training step (train-mode BN, a graph for backward) launches no K9."""
+    from epcnet_torch.configs import TrainConfig
+    from epcnet_torch.train.state import create_train_state
+    from epcnet_torch.train.step import build_train_step, to_device
+
+    cfg = ModelConfig(num_points=1024, proxyconv_channels=(16, 16, 16, 32),
+                      lift_channels=(64, 128), feature_dim=128)
+    tc = TrainConfig()
+    state = create_train_state(cfg, tc, cuda, variables=init_flat_variables(cfg, 0))
+    before = bn_act_cuda.launches
+    state, m = build_train_step(cfg, tc)(state, to_device(_blob_batch(5, 2, 2, 4, 1024),
+                                                          cuda))
+    assert np.isfinite(float(m["loss"])) and bn_act_cuda.launches == before
 
 
 def test_dgcnn_vlad_on_card(cuda):
