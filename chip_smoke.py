@@ -742,7 +742,9 @@ def evaluate_phase(embed, cfg: ModelConfig, flat: dict, tmp: str) -> dict:
                 if r == 0:  # K1 at the path's shapes, the padded batch's ties included
                     check_k1(xb, k, torch.bfloat16, splits=(1, 2, 4, 8))
                 with torch.inference_mode():
-                    d_p = model.forward_graph(xb, *knn.knn_adjacency_plain(xb, k, torch.bfloat16))
+                    ind, proxy = knn.knn_adjacency_plain(xb, k, torch.bfloat16)
+                    d_p = model.forward_graph(xb, adjacency.NeighborGraph(
+                        "dense", ind, k, torch.bfloat16, proxy))
                 cnt = min(bs, len(s) - b)
                 err = max(err, float(np.abs(d_k[b:b + cnt] - d_p[:cnt].cpu().numpy()).max()))
                 del xb, d_p
@@ -870,9 +872,11 @@ def plain_graph(model, k):
     (K1's and K2's plain versions on the card), so that the same step can be
     held against the kernel path."""
     def build_graph(x, route):
+        dtype = compute_dtype(model.cfg)
         if route == "gather":
-            return knn.knn_plain(x, k), None
-        return knn.knn_adjacency_plain(x, k, compute_dtype(model.cfg), with_proxy=True, fmt=route)
+            return adjacency.NeighborGraph(route, knn.knn_plain(x, k), k, dtype)
+        adj, proxy0 = knn.knn_adjacency_plain(x, k, dtype, with_proxy=True, fmt=route)
+        return adjacency.NeighborGraph(route, adj, k, dtype, proxy0)
     model.build_graph = build_graph
 
 
@@ -1924,7 +1928,9 @@ def main() -> int:
     # -- 7. descriptors: kernel path against the plain-twin path -----------
     with Phase("descriptors"), torch.inference_mode():
         d_kernel = embed(x8)
-        d_plain = model.forward_graph(x8, *knn.knn_adjacency_plain(x8, k, bf16))
+        ind8, proxy8 = knn.knn_adjacency_plain(x8, k, bf16)
+        d_plain = model.forward_graph(x8, adjacency.NeighborGraph("dense", ind8, k, bf16,
+                                                                  proxy8))
     assert d_kernel.shape == (8, 256) and bool(torch.isfinite(d_kernel).all())
     norms = torch.linalg.vector_norm(d_kernel, dim=-1)
     assert bool(((norms - 1).abs() < 1e-5).all()), norms

@@ -5,14 +5,13 @@ multi-scale concat -> per-point lift -> G-VLAD -> [B, output_dim]
 L2-normalised fp32 descriptor.
 
 The kNN graph takes one of three routes, chosen as the JAX model chooses
-(``adjacency_route``; ``adjacency_format`` keeps the JAX meaning):
+(``adjacency_route``; ``adjacency_format`` keeps the JAX meaning), and
+each layer takes its proxy from it (``ops/adjacency.py::NeighborGraph``):
 
 - dense (``auto`` up to N=16384): K1 gives the int8 indicator and the
-  layer-0 proxy; in evaluation on the card layers 1.. take K7
-  (``indicator_neighbor_mean``), which reads the int8 indicator; in
-  training, and on the CPU, the indicator is cast to the compute dtype once
-  and layers 1.. take ``A @ F`` (``neighbor_mean``; on the card the matrix
-  units, whose product has the backward ``Aᵀ g``);
+  layer-0 proxy; layers 1.. read the indicator (K7 on the card) in
+  evaluation, and its cast to the compute dtype through ``A @ F`` in
+  training;
 - packed (``auto`` past N=16384 where the bit-plane layout accepts N): K3
   gives the indicator as bit planes and the layer-0 proxy; layers 1.. take
   K4 (``packed_neighbor_mean``);
@@ -40,7 +39,7 @@ from torch import nn
 from epcnet_torch.configs import ModelConfig
 from epcnet_torch.models.layers import ProxyConv, SharedMLP
 from epcnet_torch.models.vlad_head import GVLADHead, compute_dtype
-from epcnet_torch.ops.adjacency import gather_neighbor_mean, packed_neighbor_mean
+from epcnet_torch.ops.adjacency import NeighborGraph
 from epcnet_torch.ops.knn import knn, knn_adjacency
 from epcnet_torch.utils.profiling import profile_region
 
@@ -87,80 +86,61 @@ def adjacency_route(cfg: ModelConfig, n: int, train: bool = False) -> str:
 
 
 class EPCNet(nn.Module):
-    """Submap [B, N, 3] -> descriptor [B, output_dim] (L2-normalised fp32)."""
+    """Submap [B, N, 3] -> descriptor [B, output_dim] (L2-normalised fp32).
 
-    def __init__(self, cfg: ModelConfig):
+    ``group``: a process group the point axis is sharded over (the
+    points-sharded EPC-Net, ``models/points_sharded.py``); every BN and the
+    VLAD head complete their sums over it."""
+
+    def __init__(self, cfg: ModelConfig, group=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.group = cfg, group
         dtype = compute_dtype(cfg)
         in_ch = 3
         for i, ch in enumerate(cfg.proxyconv_channels):
-            self.add_module(f"proxyconv_{i}", ProxyConv(in_ch, ch, cfg.knn_k, dtype))
+            self.add_module(f"proxyconv_{i}", ProxyConv(in_ch, ch, dtype, bn_group=group))
             in_ch = ch
-        self.lift = SharedMLP(sum(cfg.proxyconv_channels), cfg.lift_channels, dtype)
-        self.gvlad = GVLADHead(cfg)
+        self.lift = SharedMLP(sum(cfg.proxyconv_channels), cfg.lift_channels, dtype,
+                              bn_group=group)
+        self.gvlad = GVLADHead(cfg, group=group)
 
     def forward(self, points: torch.Tensor, train: bool = False,
                 momentum=0.9) -> torch.Tensor:
         x = points.float()
         route = adjacency_route(self.cfg, x.shape[-2], train)
         with profile_region("epcnet/knn_graph"), torch.no_grad():
-            graph, proxy0 = self.build_graph(x, route)
-        return self.forward_graph(x, graph, proxy0, route, train, momentum)
+            graph = self.build_graph(x, route)
+        return self.forward_graph(x, graph, train, momentum)
 
-    def build_graph(self, x: torch.Tensor, route: str):
-        """The kNN graph of ``route`` and the layer-0 proxy: (int8 indicator
-        [B, N, N], proxy0) for dense, (int32 bit planes [B, N, N/32], proxy0)
-        for packed, (int32 ids [B, N, k], None) for gather."""
-        k = self.cfg.knn_k
+    def build_graph(self, x: torch.Tensor, route: str) -> NeighborGraph:
+        """The kNN graph of ``route``: the int8 indicator [B, N, N] and the
+        layer-0 proxy (K1) for dense, the int32 bit planes [B, N, N/32] and
+        the proxy (K3) for packed, the int32 ids [B, N, k] (K2) for gather."""
+        k, dtype = self.cfg.knn_k, compute_dtype(self.cfg)
         if route == "gather":
-            return knn(x, k), None
-        return knn_adjacency(x, k, compute_dtype(self.cfg), with_proxy=True, fmt=route)
+            return NeighborGraph(route, knn(x, k), k, dtype)
+        adj, proxy0 = knn_adjacency(x, k, dtype, with_proxy=True, fmt=route)
+        return NeighborGraph(route, adj, k, dtype, proxy0)
 
-    def forward_graph(self, x: torch.Tensor, graph: torch.Tensor,
-                      proxy0: torch.Tensor | None = None,
-                      route: str = "dense", train: bool = False,
-                      momentum=0.9) -> torch.Tensor:
-        """The network after the kNN graph, as ``build_graph`` gives it for
-        ``route``. Split from ``forward`` so a caller can feed a graph from
-        another source (the plain twins on the card, to hold the kernel path
-        against them). On the dense route layers 1.. take the mean from an
-        int8 indicator on the card with ``train`` False through K7, and from
-        the indicator cast to the compute dtype otherwise (training, the CPU,
-        or a caller's graph already in that dtype). Its parts are named spans
-        (``profile_region``): ``epcnet/indicator_cast`` (the cast, where it
-        runs), ``epcnet/proxyconv_{i}`` (each holding
-        ``epcnet/neighbor_mean`` on the dense route's layers 1..),
-        ``epcnet/neighbor_mean`` before each layer on the gather route,
-        ``epcnet/lift``, ``epcnet/gvlad``."""
-        if route not in ("dense", "packed", "gather"):
-            raise ValueError(f"route must be dense|packed|gather, got {route!r}")
-        dtype = compute_dtype(self.cfg)
-        f = x.float().to(dtype)
-        a = None
+    def forward_graph(self, x: torch.Tensor, graph: NeighborGraph, train: bool = False,
+                      momentum=0.9, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """The network after the kNN graph, which a caller may build elsewhere
+        (the card tests' plain twins; the points-sharded ring kNN); ``mask``
+        [B, N] (1 real, 0 pad) goes to the VLAD head. Spans: ``epcnet/
+        proxyconv_{i}`` (each holding the graph's ``epcnet/neighbor_mean``
+        and ``epcnet/indicator_cast`` where they run), ``epcnet/lift``,
+        ``epcnet/gvlad``."""
+        f = x.float().to(compute_dtype(self.cfg))
         scales = []
         for i in range(len(self.cfg.proxyconv_channels)):
-            proxy = None
-            if route == "gather":
-                with profile_region("epcnet/neighbor_mean"):
-                    proxy = gather_neighbor_mean(f, graph)
-            elif i == 0:
-                proxy = proxy0
-            elif route == "packed":
-                proxy = packed_neighbor_mean(f, graph, self.cfg.knn_k, dtype)
-            elif a is None and not train and graph.is_cuda:
-                a = graph  # K7 reads the int8 indicator in each of layers 1..
-            elif a is None:
-                with profile_region("epcnet/indicator_cast"):
-                    a = graph.to(dtype)  # once per forward, shared by layers 1..
             with profile_region(f"epcnet/proxyconv_{i}"):
-                f = getattr(self, f"proxyconv_{i}")(f, a, proxy=proxy, train=train,
-                                                    momentum=momentum)
+                proxy = graph.proxy(i, f, train)
+                f = getattr(self, f"proxyconv_{i}")(f, proxy, train, momentum)
             scales.append(f)
         with profile_region("epcnet/lift"):
             f_lift = self.lift(torch.cat(scales, dim=-1), train, momentum)  # [B, N, feature_dim]
         with profile_region("epcnet/gvlad"):
-            return self.gvlad(f_lift, train=train, momentum=momentum)
+            return self.gvlad(f_lift, mask=mask, train=train, momentum=momentum)
 
 
 def param_count(model: nn.Module) -> int:

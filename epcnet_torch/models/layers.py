@@ -22,10 +22,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from epcnet_torch.ops.adjacency import indicator_neighbor_mean, neighbor_mean
 from epcnet_torch.ops.bn_act import activation, bn_act, bn_affine
 from epcnet_torch.parallel.collectives import all_reduce_sum, group_size
-from epcnet_torch.utils.profiling import profile_region
 
 
 class Dense(nn.Module):
@@ -63,11 +61,11 @@ class DynamicBatchNorm(nn.Module):
 
     ``group``: a process group whose ranks each hold a part of the batch
     (data-parallel training: a block of the tuples; the points-sharded
-    EPC-Net: a block of the points). Train-mode statistics then span the
-    whole batch, two passes as the JAX layer's: the mean from an
+    EPC-Net: a block of the points). Train-mode statistics span the whole
+    batch, two passes as the JAX layer's: the mean from an
     ``all_reduce_sum`` of the [C] sums, then the variance from one of the
-    centred squares; both are differentiable, and identical on every rank,
-    so the running update stays identical too."""
+    centred squares (no group: the local sums); both are differentiable,
+    and identical on every rank, so the running update stays identical."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3, group=None):
         super().__init__()
@@ -81,16 +79,11 @@ class DynamicBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, momentum=0.9) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # fp32 (fp64 stays)
-        if train and self.group is not None:
+        if train:
             red = tuple(range(x.dim() - 1))
             total = x.numel() // x.shape[-1] * group_size(self.group)
             mean = all_reduce_sum(xf.sum(dim=red), self.group) / total
             var = all_reduce_sum(((xf - mean) ** 2).sum(dim=red), self.group) / total
-            self.pending = (mean.detach(), var.detach(), momentum)
-        elif train:
-            red = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=red)
-            var = ((xf - mean) ** 2).mean(dim=red)
             self.pending = (mean.detach(), var.detach(), momentum)
         else:
             mean, var = self.mean, self.var
@@ -174,30 +167,19 @@ class SharedMLP(nn.Module):
 
 
 class ProxyConv(nn.Module):
-    """EPC-Net's ProxyConv [PAPER §III-B]: proxy_i = mean of the K
-    neighbours' features (the 0/1 indicator matmul scaled by 1/K; K7 where
-    the indicator comes as K1's int8, which has no backward; or a
-    precomputed ``proxy``); output = ReLU(BN(W · [proxy - f, f])) — the
-    concatenation in that order."""
+    """EPC-Net's ProxyConv [PAPER §III-B]: output = ReLU(BN(W · [proxy - f,
+    f])), the concatenation in that order, where ``proxy`` is the mean of
+    each point's K neighbours' features (``ops/adjacency.py::NeighborGraph``
+    computes it)."""
 
-    def __init__(self, in_channels: int, out_channels: int, knn_k: int = 20,
-                 dtype=torch.bfloat16, bn_group=None):
+    def __init__(self, in_channels: int, out_channels: int, dtype=torch.bfloat16,
+                 bn_group=None):
         super().__init__()
-        self.knn_k = knn_k
-        self.dtype = dtype
         self.dense = Dense(2 * in_channels, out_channels, dtype)
         self.bn = DynamicBatchNorm(out_channels, group=bn_group)
 
-    def forward(self, features: torch.Tensor, adjacency: torch.Tensor | None,
-                proxy: torch.Tensor | None = None, train: bool = False, momentum=0.9):
-        if proxy is None:  # the dense route's mean, a span of its own
-            with profile_region("epcnet/neighbor_mean"):
-                if adjacency.dtype == torch.int8:
-                    proxy = indicator_neighbor_mean(features, adjacency, self.knn_k,
-                                                    self.dtype)
-                else:
-                    proxy = neighbor_mean(features, adjacency, compute_dtype=self.dtype,
-                                          adjacency_scale=1.0 / self.knn_k)
+    def forward(self, features: torch.Tensor, proxy: torch.Tensor, train: bool = False,
+                momentum=0.9):
         h = torch.cat([proxy - features, features], dim=-1)
         return self.bn.forward_act(self.dense(h), train, momentum)
 

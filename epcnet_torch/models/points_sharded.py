@@ -41,14 +41,13 @@ from typing import Mapping
 import numpy as np
 import torch
 import torch.utils.checkpoint
-from torch import nn
 
 from epcnet_torch import losses as losses_lib
 from epcnet_torch.configs import ModelConfig, TrainConfig
 from epcnet_torch.device import resolve_device
-from epcnet_torch.models.layers import ProxyConv, SharedMLP
-from epcnet_torch.models.vlad_head import GVLADHead, compute_dtype
-from epcnet_torch.ops.adjacency import gather_neighbor_mean
+from epcnet_torch.models.epcnet import EPCNet
+from epcnet_torch.models.vlad_head import compute_dtype
+from epcnet_torch.ops.adjacency import NeighborGraph
 from epcnet_torch.ops.retrieval import ring_knn_local
 from epcnet_torch.parallel.collectives import all_gather, group_rank, group_size
 from epcnet_torch.train.state import TrainState, bn_momentum_schedule, lr_schedule, make_optimizer
@@ -56,24 +55,24 @@ from epcnet_torch.train.step import _apply_update, _backward_and_commit, average
 from epcnet_torch.weights import init_flat_variables, load_flat_variables
 
 
-class _ShardEPCNet(nn.Module):
-    """One rank's body: ``EPCNet``'s submodule tree and names
-    (``proxyconv_{i}``, ``lift``, ``gvlad``), so its flat weights load
-    verbatim, with every BN and the VLAD head completed over ``group``."""
+class _RingGraph(NeighborGraph):
+    """The gather graph of the ring kNN: ids are global rows (rank * nl +
+    row), so each mean first ``all_gather``s every rank's rows in rank
+    order."""
 
-    def __init__(self, cfg: ModelConfig, group=None):
-        super().__init__()
-        self.cfg = cfg
+    def __init__(self, ids: torch.Tensor, k: int, dtype, group):
+        super().__init__("gather", ids, k, dtype)
         self.group = group
-        dtype = compute_dtype(cfg)
-        in_ch = 3
-        for i, ch in enumerate(cfg.proxyconv_channels):
-            self.add_module(f"proxyconv_{i}",
-                            ProxyConv(in_ch, ch, cfg.knn_k, dtype, bn_group=group))
-            in_ch = ch
-        self.lift = SharedMLP(sum(cfg.proxyconv_channels), cfg.lift_channels, dtype,
-                              bn_group=group)
-        self.gvlad = GVLADHead(cfg, group=group)
+
+    def rows(self, features: torch.Tensor) -> torch.Tensor:
+        t, nl, c = features.shape
+        full = all_gather(features, self.group)  # [w, T, nl, C]
+        return full.transpose(0, 1).reshape(t, group_size(self.group) * nl, c)
+
+
+class _ShardEPCNet(EPCNet):
+    """One rank's body: ``EPCNet`` with every BN and the VLAD head completed
+    over ``group``, on the ring kNN's graph."""
 
     def forward(self, xs: torch.Tensor, mask: torch.Tensor | None = None,
                 train: bool = False, momentum=0.99) -> torch.Tensor:
@@ -82,26 +81,16 @@ class _ShardEPCNet(nn.Module):
         step's flattened batch). mask: optional [nl] (1 real, 0 pad).
         Returns the [output_dim] (or [T, output_dim]) descriptor, the same
         on every rank."""
-        k, w = self.cfg.knn_k, group_size(self.group)
+        k = self.cfg.knn_k
         single = xs.dim() == 2
         if single:
             xs = xs[None]
         t, nl, _ = xs.shape
         with torch.no_grad():
             idx = torch.stack([ring_knn_local(xs[i], k, self.group)[0] for i in range(t)])
-        f = xs.float().to(compute_dtype(self.cfg))
-        scales = []
-        for i in range(len(self.cfg.proxyconv_channels)):
-            # every rank's rows in rank order: global row = rank * nl + row,
-            # the ring kNN's ids
-            full = all_gather(f, self.group).transpose(0, 1).reshape(t, w * nl, -1)
-            proxy = gather_neighbor_mean(full, idx)
-            f = getattr(self, f"proxyconv_{i}")(f, None, proxy=proxy, train=train,
-                                                momentum=momentum)
-            scales.append(f)
-        f_lift = self.lift(torch.cat(scales, dim=-1), train, momentum)
-        desc = self.gvlad(f_lift, mask=None if mask is None else mask.expand(t, nl),
-                          train=train, momentum=momentum)
+        graph = _RingGraph(idx, k, compute_dtype(self.cfg), self.group)
+        desc = self.forward_graph(xs, graph, train, momentum,
+                                  mask=None if mask is None else mask.expand(t, nl))
         return desc[0] if single else desc
 
 

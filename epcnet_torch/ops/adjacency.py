@@ -5,10 +5,10 @@ ProxyConv averages each point's K neighbour features ("proxy point"). As in
 the JAX package the kNN graph is built once per forward and every layer's
 mean reads it in one of three layouts, the model's adjacency routes:
 
-- dense: the [N, N] 0/1 indicator; the mean is one matmul ``A @ F`` scaled
-  by 1/K afterwards (``neighbor_mean``); in evaluation on the card K7
-  (``csrc/indicator_mean.cu``) reads the int8 indicator instead
-  (``indicator_neighbor_mean``);
+- dense: the [N, N] 0/1 indicator; in evaluation the mean reads the int8
+  indicator (``indicator_neighbor_mean``: K7, ``csrc/indicator_mean.cu``, on
+  the card); in training it is one matmul ``A @ F`` on the indicator cast
+  to the compute dtype, scaled by 1/K afterwards (``neighbor_mean``);
 - packed: the indicator as int32 bit planes [N, N/32] (``pack_indicator``);
   the mean is K4 (``csrc/packed_mean.cu``) on the card
   (``packed_neighbor_mean``);
@@ -28,6 +28,7 @@ import torch
 
 from epcnet_torch.ops import _build
 from epcnet_torch.ops.matmul import matmul_f32acc
+from epcnet_torch.utils.profiling import profile_region
 
 _PLANES = 32
 
@@ -266,3 +267,48 @@ def gather_neighbor_mean(features: torch.Tensor, idx: torch.Tensor) -> torch.Ten
     nbr = gather_neighbors(features, idx)
     wide = torch.promote_types(features.dtype, torch.float32)  # fp32 (fp64 stays)
     return (nbr.to(wide).sum(-2) * (1.0 / idx.shape[-1])).to(features.dtype)
+
+
+class NeighborGraph:
+    """One forward's kNN graph and the one place that maps (layout, layer,
+    train) to a layer's neighbour mean. ``data``: for "dense" the [B, N, N]
+    indicator (K1's int8, or a caller's in a float dtype), for "packed" the
+    int32 bit planes [B, N, N/32], for "gather" the int32 ids [B, N, k];
+    ``k`` the mean's 1/k scale; ``proxy0`` layer 0's proxy where K1 or K3
+    gave one."""
+
+    def __init__(self, layout: str, data: torch.Tensor, k: int, dtype=torch.bfloat16,
+                 proxy0: torch.Tensor | None = None):
+        if layout not in ("dense", "packed", "gather"):
+            raise ValueError(f"layout must be dense|packed|gather, got {layout!r}")
+        self.layout, self.data, self.k, self.dtype, self.proxy0 = (
+            layout, data, k, dtype, proxy0)
+        self.cast = None  # the int8 indicator in ``dtype``, once a training forward
+
+    def rows(self, features: torch.Tensor) -> torch.Tensor:
+        """The feature rows the gather ids index: the features themselves."""
+        return features
+
+    def proxy(self, i: int, features: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Layer ``i``'s proxy for ``features`` [B, N, C]: ``proxy0`` for layer
+        0 where given, else the layout's mean (span ``epcnet/neighbor_mean``).
+        Evaluation reads the dense int8 indicator as it is; training casts it
+        once (span ``epcnet/indicator_cast``) for layers 1.., since K7 has no
+        backward and the cast's ``A @ F`` has ``Aᵀ g``."""
+        if i == 0 and self.proxy0 is not None:
+            return self.proxy0
+        a = self.data
+        if self.layout == "dense" and a.dtype == torch.int8 and train:
+            if self.cast is None:
+                with profile_region("epcnet/indicator_cast"):
+                    self.cast = a.to(self.dtype)
+            a = self.cast
+        with profile_region("epcnet/neighbor_mean"):
+            if self.layout == "gather":
+                return gather_neighbor_mean(self.rows(features), a)
+            if self.layout == "packed":
+                return packed_neighbor_mean(features, a, self.k, self.dtype)
+            if a.dtype == torch.int8:
+                return indicator_neighbor_mean(features, a, self.k, self.dtype)
+            return neighbor_mean(features, a, compute_dtype=self.dtype,
+                                 adjacency_scale=1.0 / self.k)

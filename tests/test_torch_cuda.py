@@ -337,7 +337,8 @@ def test_k7_on_the_eval_dense_route(cuda):
     assert adjacency.indicator_neighbor_mean_cuda.launches == before + 3
     with torch.inference_mode():
         ind, proxy = knn.knn_adjacency(x, cfg.knn_k)
-        d_cast = embed.model.forward_graph(x, ind.to(torch.bfloat16), proxy)
+        d_cast = embed.model.forward_graph(x, adjacency.NeighborGraph(
+            "dense", ind.to(torch.bfloat16), cfg.knn_k, torch.bfloat16, proxy))
     assert adjacency.indicator_neighbor_mean_cuda.launches == before + 3
     assert d.shape == (32, 256) and bool(torch.isfinite(d).all())
     assert float((d - d_cast).abs().max()) <= 1e-3
@@ -569,8 +570,9 @@ def test_model_kernel_path_matches_plain_twin(cuda):
     x = _cloud(5, 4, 512, cuda)
     with torch.inference_mode():
         d = embed(x)
-        d_plain = embed.model.forward_graph(
-            x, *knn.knn_adjacency_plain(x, cfg.knn_k, torch.bfloat16))
+        ind, proxy = knn.knn_adjacency_plain(x, cfg.knn_k, torch.bfloat16)
+        d_plain = embed.model.forward_graph(x, adjacency.NeighborGraph(
+            "dense", ind, cfg.knn_k, torch.bfloat16, proxy))
     assert d.shape == (4, 256) and bool(torch.isfinite(d).all())
     assert float((d - d_plain).abs().max()) <= 1e-3
 
@@ -794,9 +796,11 @@ def _plain_graph(model, k):
     from epcnet_torch.models.vlad_head import compute_dtype
 
     def build_graph(x, route):
+        dtype = compute_dtype(model.cfg)
         if route == "gather":
-            return knn.knn_plain(x, k), None
-        return knn.knn_adjacency_plain(x, k, compute_dtype(model.cfg), True, route)
+            return adjacency.NeighborGraph(route, knn.knn_plain(x, k), k, dtype)
+        adj, proxy0 = knn.knn_adjacency_plain(x, k, dtype, True, route)
+        return adjacency.NeighborGraph(route, adj, k, dtype, proxy0)
     model.build_graph = build_graph
 
 

@@ -31,6 +31,7 @@ from epcnet_torch.models import PointNetVLAD, get_model, param_count
 from epcnet_torch.models.epcnet import _packed_layout_supported, adjacency_route
 from epcnet_torch.models.layers import ProxyConv, SharedMLP, TNet
 from epcnet_torch.models.vlad_head import GVLADHead
+from epcnet_torch.ops.adjacency import neighbor_mean
 from epcnet_torch.weights import init_flat_variables, load_flat_variables
 
 FP32_TOL = 1e-5
@@ -165,11 +166,13 @@ def test_proxyconv_and_shared_mlp_match(dtype):
     want = np.asarray(mlp.apply(vm, h, False, 0.9).astype(jnp.float32))
 
     td = getattr(torch, dtype)
-    tpc, tmlp = ProxyConv(8, 12, k, td), SharedMLP(12, (16, 10), td)
+    tpc, tmlp = ProxyConv(8, 12, td), SharedMLP(12, (16, 10), td)
     load_flat_variables(tpc, flatten_variables(vp["params"], vp["batch_stats"]))
     load_flat_variables(tmlp, flatten_variables(vm["params"], vm["batch_stats"]))
+    tf = torch.tensor(f).to(td)
+    proxy = neighbor_mean(tf, torch.tensor(ind), compute_dtype=td, adjacency_scale=1.0 / k)
     with torch.inference_mode():
-        th = tpc(torch.tensor(f).to(td), torch.tensor(ind).to(td))
+        th = tpc(tf, proxy)
         got = tmlp(th)
     assert got.dtype == td
     # bf16 activations here are O(1), not unit-normalised: 2e-2 is ~2 bf16 ulps
@@ -179,8 +182,7 @@ def test_proxyconv_and_shared_mlp_match(dtype):
     want_h = pc.apply(vp, jf, jnp.asarray(ind), True, 0.7, mutable=["batch_stats"])[0]
     want_t = mlp.apply(vm, want_h, True, 0.7, mutable=["batch_stats"])[0].astype(jnp.float32)
     with torch.no_grad():
-        got_t = tmlp(tpc(torch.tensor(f).to(td), torch.tensor(ind).to(td), train=True,
-                         momentum=0.7), train=True, momentum=0.7)
+        got_t = tmlp(tpc(tf, proxy, train=True, momentum=0.7), train=True, momentum=0.7)
     np.testing.assert_allclose(got_t.float().numpy(), np.asarray(want_t),
                                atol=FP32_TOL if dtype == "float32" else 2e-2)
 

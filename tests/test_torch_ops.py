@@ -337,6 +337,42 @@ def test_indicator_neighbor_mean_matches(dtype, n, c):
         assert _within_bf16_ulps(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["dense_eval", "dense_train", "dense_float", "packed",
+                                  "gather"])
+def test_neighbor_graph_proxies(case):
+    """``NeighborGraph.proxy`` for layers 0-3 on each layout against the
+    exact mean of the kNN lists (integer features over k=4: every route's
+    sum and 1/k scale are exact, so all agree bit for bit); layer 0 is the
+    graph's proxy0 where it has one. The training cast runs once a forward,
+    in its span, and never in evaluation."""
+    from epcnet_torch.utils.profiling import region_ms
+
+    b, n, k, dt = 2, 64, 4, torch.bfloat16
+    g = torch.Generator().manual_seed(27)
+    ids = knn_plain(torch.rand(b, n, 3, generator=g), k)
+    ind = tadj.count_adjacency(ids, n, torch.int8)
+    proxy0 = torch.rand(b, n, 3, generator=g).to(dt)
+    layout, data = {"dense_eval": ("dense", ind), "dense_train": ("dense", ind),
+                    "dense_float": ("dense", ind.to(dt)),
+                    "packed": ("packed", tadj.pack_indicator(ind)),
+                    "gather": ("gather", ids)}[case]
+    graph = tadj.NeighborGraph(layout, data, k, dt, None if layout == "gather" else proxy0)
+    train = case == "dense_train"
+    feats = [torch.randint(-8, 9, (b, n, c), generator=g).to(dt) for c in (3, 8, 8, 16)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = [graph.proxy(i, f, train) for i, f in enumerate(feats)]
+    for i, (f, p) in enumerate(zip(feats, got)):
+        if i == 0 and layout != "gather":
+            assert p is proxy0
+            continue
+        want = f.double()[torch.arange(b)[:, None, None], ids.long()].mean(-2).to(dt)
+        assert p.dtype == dt and torch.equal(p, want), (case, i)
+    regions = region_ms(prof, "epcnet/")
+    assert regions["epcnet/neighbor_mean"]["count"] == (4 if layout == "gather" else 3)
+    assert regions.get("epcnet/indicator_cast", {"count": 0})["count"] == int(train)
+    assert (graph.cast is not None) == train
+
+
 def test_indicator_neighbor_mean_refuses():
     """No backward, an int8 indicator only, bf16 or fp32 only, and features
     whose rows are the indicator's columns."""
