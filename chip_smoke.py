@@ -6,11 +6,12 @@
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
 ``knn_phase.cu``, K6 ``knn_pipelined.cu``, K7 ``indicator_mean.cu``, K8
-``knn_features.cu``, K9 ``bn_act.cu``; K1-K3, K5, K6 and K8 on the tiled
-core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the ptxas report of every
-tiled kernel, of K4, K7 and K9 must show no spill), holds each against its
-plain PyTorch version on the card (K9 bit-equal at the main path's shapes,
-131,072 and 2,621,440 rows), runs DGCNN-VLAD ("dgcnn_vlad":
+``knn_features.cu``, K9 ``bn_act.cu``, K10 ``edge_max.cu``; K1-K3, K5, K6
+and K8 on the tiled core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the
+ptxas report of every tiled kernel, of K4, K7, K9 and K10 must show no
+spill), holds each against its plain PyTorch version on the card (K9
+bit-equal at 131,072 and 2,621,440 rows, K10 at DGCNN-VLAD's B=32, N=4096,
+k=20 and Cout 64, 128, 256), runs DGCNN-VLAD ("dgcnn_vlad":
 ``dgcnn_vlad_phase``), builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
@@ -180,9 +181,10 @@ from epcnet_torch.data import load_pc_files_native, load_pickle, native_availabl
 from epcnet_torch.evals import embed_entries, evaluate_dataset, get_recall
 from epcnet_torch.models import get_model, param_count
 from epcnet_torch.models.epcnet import adjacency_route
+from epcnet_torch.models.dgcnn import EdgeConv
 from epcnet_torch.models.layers import DynamicBatchNorm
 from epcnet_torch.models.vlad_head import compute_dtype
-from epcnet_torch.ops import _build, adjacency, bn_act, knn, knn_phases, sampling
+from epcnet_torch.ops import _build, adjacency, bn_act, edge_max, knn, knn_phases, sampling
 from epcnet_torch.ops.matmul import matmul_f32acc
 from epcnet_torch.parallel.collectives import GLOO_CUDA_OPS
 from epcnet_torch.scripts import (
@@ -244,6 +246,7 @@ COUNTERS = {
     "K7": (adjacency.indicator_neighbor_mean_cuda, "launches"),
     "K8": (knn.knn_features_cuda, "launches"),
     "K9": (bn_act.bn_act_cuda, "launches"),
+    "K10": (edge_max.edge_max_cuda, "launches"),
 }
 
 
@@ -556,8 +559,9 @@ def k9_case(rows: int, c: int, dev, seed: int):
                torch.randn(c, device=dev, generator=g) * 0.3)
 
 
-# K9's shapes on the main path: EPC-Net's BNs at B=32, N=4096 (ProxyConv
-# 64/128, the lift 256/1024) and DGCNN-VLAD's over the edges, B·N·k rows
+# K9's shapes: EPC-Net's BNs at B=32, N=4096 (ProxyConv 64/128, the lift
+# 256/1024; DGCNN-VLAD's conv5 at 1024) and, as K9's longest runs of rows,
+# DGCNN-VLAD's edges, B·N·k rows (on no path since K10 took its EdgeConvs)
 K9_SHAPES = ((131072, 64), (131072, 128), (131072, 256), (131072, 1024),
              (2621440, 64), (2621440, 128), (2621440, 256))
 
@@ -576,6 +580,52 @@ def check_k9(dev) -> list:
     return [list(s) for s in K9_SHAPES]
 
 
+def k10_case(b: int, n: int, cout: int, k: int, dev, seed: int):
+    """K10's inputs: fp32 products y [b, n, 2·cout], int32 ids [b, n, k]
+    holding the point itself first and a repeat, and ``k9_case``'s BN
+    vectors with scales of both signs and one zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(b, n, 2 * cout, device=dev, generator=g) * 3
+    ids = torch.randint(0, n, (b, n, k), device=dev, generator=g)
+    ids[..., 0] = torch.arange(n, device=dev)
+    if k > 2:
+        ids[..., 1] = ids[..., 2]
+    _, (mean, var, scale, bias) = k9_case(1, cout, dev, seed)
+    scale[1::3] *= -1
+    scale[0] = 0
+    return y, ids.to(torch.int32), (mean, var, scale, bias)
+
+
+# K10's shapes on the main path: DGCNN-VLAD's EdgeConvs at B=32, N=4096, k=20
+K10_SHAPES = ((32, 4096, 64, 20), (32, 4096, 128, 20), (32, 4096, 256, 20))
+
+
+def check_k10(dev) -> list:
+    """K10 bit-equal to its plain version at ``K10_SHAPES`` (DGCNN-VLAD's
+    BN epsilon)."""
+    for b, n, cout, k in K10_SHAPES:
+        y, ids, v = k10_case(b, n, cout, k, dev, cout)
+        got = edge_max.edge_max_cuda(y, ids, *v, 1e-5)
+        want = edge_max.edge_max_plain(y, ids, *v, 1e-5)
+        assert torch.equal(got, want), (cout, int((got != want).sum()))
+        del got, want
+    torch.cuda.empty_cache()
+    return [list(s) for s in K10_SHAPES]
+
+
+@contextlib.contextmanager
+def published_edgeconv():
+    """While the block runs, every EdgeConv takes the published edges
+    (``EdgeConv.forward_edges``: gather, concat, Dense, K9, max), the eval
+    path before K10: the yardstick of the eval algebra."""
+    real = EdgeConv.forward
+    EdgeConv.forward = EdgeConv.forward_edges
+    try:
+        yield
+    finally:
+        EdgeConv.forward = real
+
+
 def plain_dgcnn_vlad():
     """``tests/plain_dgcnn_vlad.py``, the plain reference (torch only)."""
     import importlib.util
@@ -591,13 +641,17 @@ def plain_dgcnn_vlad():
 def dgcnn_vlad_phase(dev) -> dict:
     """DGCNN-VLAD at the published widths, B=32 submaps of N=4096 through
     ``build_embed_fn`` and ``PlaceIndex.embed``, launch counts zeroed
-    before it: one K2, three K8 and five K9 a forward, no K1 and no K7. The first 8
-    submaps' descriptors against the plain fp32 reference (a cloud at a
-    time), with the share of points whose layer-1..3 neighbour sets differ
-    from the reference's; K8 against its plain twin on the model's own
-    layer inputs (D = 64, 64, 128); K8's time at D = 64 and 128 beside its
-    bound, its plain twin's and ``torch.cdist`` + ``torch.topk``'s (which
-    promises no tie order); the embed's time and peak memory."""
+    before it: one K2, three K8, four K10 (the EdgeConvs) and one K9
+    (conv5) a forward, no K1 and no K7. The first 8 submaps' descriptors
+    against the plain fp32 reference (a cloud at a time), and those of the
+    same weights through the published edges (``published_edgeconv``), with
+    the share of points whose layer-1..3 neighbour sets differ from the
+    reference's; K8 against its plain twin on the model's own layer inputs
+    (D = 64, 64, 128); K8's time at D = 64 and 128 beside its bound, its
+    plain twin's and ``torch.cdist`` + ``torch.topk``'s (which promises no
+    tie order); at each layer on its own inputs, K10 against its twin and
+    its time beside its byte bound and the twin's, and the EdgeConv's time
+    on both paths; the embed's time and peak memory, on both paths."""
     cfg = dgcnn_vlad_config()
     n, k = cfg.num_points, cfg.knn_k
     flat = init_flat_variables(cfg, seed=0)
@@ -610,8 +664,10 @@ def dgcnn_vlad_phase(dev) -> dict:
     zero_counts()
     desc = ix.embed(sub)
     counts = read_counts()
-    assert (counts["K2"], counts["K8"], counts["K9"], counts["K1"], counts["K7"]) == \
-        (1, 3, 5, 0, 0), counts
+    assert (counts["K2"], counts["K8"], counts["K10"], counts["K9"], counts["K1"],
+            counts["K7"]) == (1, 3, 4, 1, 0, 0), counts
+    with published_edgeconv():
+        desc_edges = ix.embed(sub)
 
     x = torch.tensor(sub, device=dev)
     plain = plain_dgcnn_vlad()
@@ -623,11 +679,13 @@ def dgcnn_vlad_phase(dev) -> dict:
             f = getattr(model, f"edgeconv_{i}")(f, graphs[i])
             feats.append(f)
     differ = [[] for _ in graphs]
-    gaps = []
+    gaps, gaps_edges = [], []
     with torch.no_grad():
         for i in range(DGCNN_REF_CLOUDS):
             d_ref, g_ref = plain.forward(w, x[i:i + 1], k, cfg.proxyconv_channels)
             gaps.append(float((torch.tensor(desc[i], device=dev) - d_ref[0]).norm()))
+            gaps_edges.append(float((torch.tensor(desc_edges[i], device=dev)
+                                     - d_ref[0]).norm()))
             for layer, (g, h) in enumerate(zip(graphs, g_ref)):
                 same = torch.sort(g[i].long(), -1).values == torch.sort(h[0], -1).values
                 differ[layer].append(float((~same.all(-1)).double().mean()))
@@ -636,6 +694,31 @@ def dgcnn_vlad_phase(dev) -> dict:
     assert desc_gap <= DGCNN_TOL, gaps
     assert max(differ[0]) == 0.0, differ[0]  # layer 0's graph: xyz in fp32, K2 exact
     k8_differ = [check_k8(fl, k) for fl in feats]
+
+    k10 = {}
+    ins = [x.to(torch.bfloat16), *feats]  # each layer's input
+    with torch.inference_mode():
+        for i, (f_, ids_) in enumerate(zip(ins, graphs)):
+            layer = getattr(model, f"edgeconv_{i}")
+            c_ = f_.shape[-1]
+            w_ = layer.dense.weight.to(torch.bfloat16)
+            y = matmul_f32acc(f_.reshape(-1, c_), torch.cat([w_[:, :c_], w_[:, c_:]]).t())
+            y = y.reshape(*f_.shape[:-1], -1)
+            bn = layer.bn
+            args = (y, ids_, bn.mean, bn.var, bn.scale, bn.bias, bn.epsilon)
+            assert torch.equal(edge_max.edge_max_cuda(*args), edge_max.edge_max_plain(*args))
+            k10[f"layer{i}"] = {
+                "ms": cuda_ms(lambda: edge_max.edge_max_cuda(*args), 20),
+                "plain_ms": cuda_ms(lambda: edge_max.edge_max_plain(*args), 3),
+                # y read once, the ids, the bf16 output
+                "bytes": y.numel() * 4 + ids_.numel() * 4 + y.numel(),
+                "bound_ms": (y.numel() * 5 + ids_.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+                # a max (or a min) over k, then 6 fp32 operations an output
+                "ops": (k + 6) * y.numel() // 2,
+                "edgeconv_ms": cuda_ms(lambda: layer.forward_points(f_, ids_), 10),
+                "edgeconv_edges_ms": cuda_ms(lambda: layer.forward_edges(f_, ids_), 5),
+                "shape": [*f_.shape, y.shape[-1] // 2], "k": k}
+            del y, args
 
     k8 = {}
     for f_ in (feats[0], feats[2]):  # D = 64 (layers 1-2's inputs), 128 (layer 3's)
@@ -657,11 +740,18 @@ def dgcnn_vlad_phase(dev) -> dict:
     with torch.inference_mode():
         embed_ms = cuda_ms(lambda: embed(x), 5)
     peak = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode(), published_edgeconv():
+        embed_edges_ms = cuda_ms(lambda: embed(x), 5)
+    peak_edges = torch.cuda.max_memory_allocated(dev) - base
     return {"params": param_count(model), "launches": counts, "desc_gap": desc_gap,
-            "desc_gaps": gaps, "graph_differ_share": {
+            "desc_gaps": gaps, "desc_gap_edges": max(gaps_edges),
+            "desc_gaps_edges": gaps_edges, "graph_differ_share": {
                 f"layer{i}": [min(v), max(v)] for i, v in enumerate(differ)},
-            "k8_vs_plain_rows_differ": k8_differ, "k8": k8,
-            "embed_b32_ms": embed_ms, "embed_peak_bytes": peak}
+            "k8_vs_plain_rows_differ": k8_differ, "k8": k8, "k10": k10,
+            "embed_b32_ms": embed_ms, "embed_peak_bytes": peak,
+            "embed_b32_edges_ms": embed_edges_ms, "embed_edges_peak_bytes": peak_edges}
 
 
 def misaligned(x):
@@ -1686,7 +1776,9 @@ def main() -> int:
                # K8: the two list sizes
                "knn_features": ("knn_features_tiled_kernel", 2),
                # K9: ReLU and LeakyReLU
-               "bn_act": ("bn_act_kernel", 2)}
+               "bn_act": ("bn_act_kernel", 2),
+               # K10: DGCNN's 3 widths
+               "edge_max": ("edge_max_kernel", 3)}
     spills = {}
     for src, (part, count) in watched.items():
         if src in reports:
@@ -1697,7 +1789,7 @@ def main() -> int:
     dense = sum("dense_tiled" in name for name in spills)
     assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
     log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
-        "them K1's, K5's and K6's on it, K4's, K7's, K8's and K9's)" if spills else
+        "them K1's, K5's and K6's on it, K4's, K7's, K8's, K9's and K10's)" if spills else
         "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
@@ -1842,6 +1934,9 @@ def main() -> int:
     with Phase("K9 check"):
         k9_checked = check_k9(dev)
     log(f"phase K9 check: bit-equal at {k9_checked}, ReLU and LeakyReLU 0.2")
+    with Phase("K10 check"):
+        k10_checked = check_k10(dev)
+    log(f"phase K10 check: bit-equal at {k10_checked} (B, N, Cout, k)")
 
     # -- 5b. K5 and K6 against their plain versions ------------------------
     with Phase("K5/K6 check"):
@@ -1912,7 +2007,9 @@ def main() -> int:
         dgcnn = dgcnn_vlad_phase(dev)
     log(f"phase dgcnn_vlad: {dgcnn['params']} params, B={DGCNN_BATCH}, N=4096, launches "
         f"{dgcnn['launches']}; descriptors against the plain fp32 reference max L2 "
-        f"{dgcnn['desc_gap']}; points whose neighbour set differs by layer "
+        f"{dgcnn['desc_gap']} (the published edges: {dgcnn['desc_gap_edges']}); embed "
+        f"{dgcnn['embed_b32_ms']:.2f} ms (the edges: {dgcnn['embed_b32_edges_ms']:.2f}); "
+        "points whose neighbour set differs by layer "
         f"{dgcnn['graph_differ_share']}; K8 rows differing from its plain twin (near-ties) "
         f"{dgcnn['k8_vs_plain_rows_differ']}")
     log(json.dumps({"dgcnn_vlad": dgcnn}))
@@ -2104,7 +2201,7 @@ def main() -> int:
         path_counts = {"serve": dense_counts, "serve capacity": cap_counts,
                        **served["counts"], "evaluate": eval_counts, "knn trace": trace_counts,
                        **train_counts, "capacity": cap_path_counts, **md_counts,
-                       "benchmark cli": bench_cli_counts,
+                       "benchmark cli": bench_cli_counts, "dgcnn_vlad": dgcnn["launches"],
                        **quality_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
@@ -2235,8 +2332,9 @@ def main() -> int:
         del ind32
 
         # K9: eval BN + activation at EPC-Net's lift (131,072 x 1024, ReLU) and
-        # DGCNN-VLAD's layer 3 edges (2,621,440 x 256, LeakyReLU 0.2), bf16;
-        # beside it the chain it replaced, through the module
+        # a long run of rows (2,621,440 x 256, LeakyReLU 0.2: DGCNN-VLAD's
+        # layer 3 edges before K10), bf16; beside it the chain it replaced,
+        # through the module
         for (rows, c_), (slope, eps) in (((131072, 1024), (0.0, 1e-3)),
                                           ((2621440, 256), (0.2, 1e-5))):
             x9, v9 = k9_case(rows, c_, dev, rows + c_)
@@ -2256,6 +2354,18 @@ def main() -> int:
                   negative_slope=slope)
             del x9, bn9
         torch.cuda.empty_cache()
+
+        # K10: DGCNN-VLAD's EdgeConvs 1-3 in eval at B=32, N=4096, k=20 (Cout
+        # 64, 128, 256), on each layer's own inputs: the dgcnn_vlad phase's times
+        for layer in ("layer1", "layer2", "layer3"):
+            t10 = dgcnn["k10"][layer]
+            entry("edge_max", "edge_max.cu", "none: the JAX package has no DGCNN; the "
+                  "published eval EdgeConv's edges, Dense, BN, LeakyReLU and max "
+                  "(epcnet_torch/models/dgcnn.py)", dgcnn["launches"]["K10"], 0.0, t10["ms"],
+                  t10["plain_ms"], t10["bytes"], t10["ops"], t10["shape"],
+                  "K10", library="none: no PyTorch call gathers, reduces and applies BN in "
+                  "one pass", edgeconv_ms=t10["edgeconv_ms"],
+                  edgeconv_edges_ms=t10["edgeconv_edges_ms"])
 
         # K5 and K6: the trace path's shape, B=8, N=4096; their times are the
         # trace phase's (K5: phase C, k distinct values and the count)

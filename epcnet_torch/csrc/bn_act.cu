@@ -10,13 +10,8 @@
 // function needs 4.
 //
 // What it computes, for each element x of a row-major bf16 [rows, C] and its
-// channel c, in fp32 with every operation rounded on its own (-fmad=false and
-// the _rn intrinsics), as the chain does:
-//   y = ((x - mean[c]) * inv[c]) * scale[c] + bias[c],  inv = rsqrt(var + eps)
-// (inv is the chain's own [C] tensor, computed by torch before the launch),
-// y rounded to bf16 (RNE), then ReLU (ATen's clamp_min: NaN kept, else
-// fmaxf(y, 0)) or LeakyReLU (y > 0 ? y : y * slope on the rounded y widened
-// to fp32, rounded again). The output is bit-equal to the chain's.
+// channel c: bn_act.cuh's epilogue, the chain's order of fp32 operations,
+// each rounded on its own, so the output is bit-equal to the chain's.
 //
 // Bound on this card: the bytes, one bf16 read and one bf16 write an element
 // (the [C] vectors stay in registers); [131072, 1024] is 537 MB, 0.160 ms at
@@ -35,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bn_act.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -52,13 +49,7 @@ __device__ __forceinline__ void load8(const float* __restrict__ p, float (&v)[8]
 template <bool kLeaky>
 __device__ __forceinline__ uint32_t bn_act1(uint32_t bits, float m, float inv, float s,
                                             float b, float slope) {
-  const float x = __uint_as_float(bits << 16);
-  const float y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, m), inv), s), b);
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(y));
-  const float f = __uint_as_float(h << 16);
-  if (kLeaky)
-    return __bfloat16_as_ushort(__float2bfloat16_rn(f > 0.f ? f : __fmul_rn(f, slope)));
-  return isnan(f) ? h : __float_as_uint(fmaxf(f, 0.f)) >> 16;  // exact: f or 0
+  return bn_act_f32<kLeaky>(__uint_as_float(bits << 16), m, inv, s, b, slope);
 }
 
 // Eight elements of channels c0 .. c0 + 7, packed two to a word.

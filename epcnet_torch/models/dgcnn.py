@@ -18,17 +18,29 @@ fp32.
 EdgeConv i, over the k neighbours j of point i (self included):
   e_ij = [x_j - x_i, x_i];  h_ij = LeakyReLU_0.2(BN(W_i e_ij)), no bias;
   x'_i = max over j of h_ij,
-with BN over every edge (B·N·k rows), eps 1e-5, as published. The edges
-are materialised, [B, N, k, 2C], and reduced with a max: the published
-computation, with no algebraic shortcut (neither the linearity of
-``W [x_j - x_i, x_i]`` nor a max taken before the affine BN).
+with BN over every edge (B·N·k rows), eps 1e-5, as published. Training,
+any call that builds an autograd graph, and the fp32 and fp64 models
+compute exactly that: the edges materialised, [B, N, k, 2C], and reduced
+with a max. An eval call on bf16 features with no graph to build (where
+``DynamicBatchNorm`` takes K9) uses the algebra instead: with W = [W1 | W2]
+split over its input columns, W e_ij = W1 x_j + (W2 - W1) x_i; BN in eval
+is a fixed affine map per channel and the LeakyReLU is increasing, so the
+max over j passes inside both, and per channel c
+  x'_ic = LeakyReLU(BN_c((M_ic - Y1_ic) + Y2_ic)),
+  M_ic = max_j Y1_jc (BN's scale_c >= 0) or min_j Y1_jc (scale_c < 0),
+with Y = x @ [W1; W2]ᵀ one product over the points (bf16 operands, fp32
+sums and result) and ``ops/edge_max.py::edge_max`` the rest (K10 on the
+card): the same function, with no [B, N, k, 2C] edges. It rounds less
+than the edges do: ``x_j - x_i`` and the Dense's output are not rounded
+to bf16, only the result is.
 
 Configuration (``configs.dgcnn_vlad_config``; ``ModelConfig`` gains no
 field): ``proxyconv_channels`` holds the EdgeConv widths (64, 64, 128,
 256), ``lift_channels`` conv5's (1024,), ``adjacency_format`` is
 ``"gather"`` (id lists; ``"auto"`` means the same here, and the dense and
-packed layouts are refused). BN's epsilon and the LeakyReLU's slope are the
-published constants below.
+packed layouts are refused). BN's epsilon (below) and the LeakyReLU's slope
+(``ops/edge_max.py::LEAKY_SLOPE``, which K10 compiles in) are the published
+constants.
 
 Precision is EPC-Net's: the features and every backbone product in bf16
 (fp32 sums), BN computed in fp32, the max exact in any dtype, the VLAD sums
@@ -36,8 +48,8 @@ and the head in fp32. K8 takes bf16 features on the card; the fp32 and fp64
 variants of the model run on the CPU (K8 raises on another dtype).
 
 Spans (``profile_region``): ``dgcnn/knn_{i}`` (each layer's graph),
-``dgcnn/edgeconv_{i}`` (gather, edges, Dense, BN, activation, max),
-``dgcnn/lift``, ``dgcnn/vlad``.
+``dgcnn/edgeconv_{i}`` (gather, edges, Dense, BN, activation, max; in eval
+the product over the points and K10), ``dgcnn/lift``, ``dgcnn/vlad``.
 """
 
 from __future__ import annotations
@@ -49,11 +61,12 @@ from epcnet_torch.configs import ModelConfig
 from epcnet_torch.models.layers import Dense, DynamicBatchNorm, SharedMLP
 from epcnet_torch.models.vlad_head import GVLADHead, compute_dtype
 from epcnet_torch.ops.adjacency import gather_neighbors
+from epcnet_torch.ops.edge_max import LEAKY_SLOPE, edge_max
 from epcnet_torch.ops.knn import knn, knn_features
+from epcnet_torch.ops.matmul import matmul_f32acc
 from epcnet_torch.utils.profiling import profile_region
 
 BN_EPSILON = 1e-5  # nn.BatchNorm2d's default in the authors' model
-LEAKY_SLOPE = 0.2
 
 
 class EdgeConv(nn.Module):
@@ -67,12 +80,30 @@ class EdgeConv(nn.Module):
 
     def forward(self, features: torch.Tensor, ids: torch.Tensor, train: bool = False,
                 momentum=0.9) -> torch.Tensor:
+        if self.bn.fixed_in_eval(features, train, self.dense.weight):
+            return self.forward_points(features, ids)
+        return self.forward_edges(features, ids, train, momentum)
+
+    def forward_edges(self, features: torch.Tensor, ids: torch.Tensor, train: bool = False,
+                      momentum=0.9) -> torch.Tensor:
+        """The published computation, over the [..., N, k, 2C] edges."""
         nbr = gather_neighbors(features, ids)  # [..., N, k, C]
         ctr = features.unsqueeze(-2).expand_as(nbr)
         edges = torch.cat([nbr - ctr, ctr], dim=-1)
         h = self.bn.forward_act(self.dense(edges), train, momentum, LEAKY_SLOPE)
         # amax, as the authors' max, splits the gradient evenly among ties
         return h.amax(dim=-2)
+
+    def forward_points(self, features: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The eval algebra of the module docstring, with no edges: one
+        product over the points, then ``edge_max`` (K10 on the card)."""
+        c = features.shape[-1]
+        w = self.dense.weight.to(features.dtype)  # [Cout, 2C]
+        stacked = torch.cat([w[:, :c], w[:, c:]])  # [W1; W2], [2·Cout, C]
+        y = matmul_f32acc(features.reshape(-1, c), stacked.t())
+        bn = self.bn
+        return edge_max(y.reshape(*features.shape[:-1], -1), ids, bn.mean, bn.var, bn.scale,
+                        bn.bias, bn.epsilon)
 
 
 class DGCNNVLAD(nn.Module):

@@ -98,13 +98,19 @@ class DynamicBatchNorm(nn.Module):
         it does not take), bit-equal to the chain. fp32 and fp64 models keep
         the chain: a model of ``compute_dtype="float32"`` embeds on the card
         too (the points-sharded fp32 embed of ``scripts/multidevice.py``)."""
-        if (not train and x.dtype == torch.bfloat16
-                and not (torch.is_grad_enabled()
-                         and (x.requires_grad or self.scale.requires_grad
-                              or self.bias.requires_grad))):
+        if self.fixed_in_eval(x, train):
             return bn_act(x, self.mean, self.var, self.scale, self.bias, self.epsilon,
                           negative_slope)
         return activation(self(x, train, momentum), negative_slope)
+
+    def fixed_in_eval(self, x: torch.Tensor, train: bool, *more: torch.Tensor) -> bool:
+        """Whether this call may take BN as the fixed per-channel affine map
+        of its running statistics with no autograd graph: eval, a bf16
+        input ``x``, and no gradient wanted of x, BN's parameters or
+        ``more`` (the tensors that reach x, such as a Dense's weight)."""
+        return (not train and x.dtype == torch.bfloat16
+                and not (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in (x, self.scale, self.bias, *more))))
 
 
 @torch.no_grad()

@@ -18,6 +18,7 @@ from epcnet_torch.configs import (
     pointnetvlad_config,
 )
 from epcnet_torch.models import layers
+from epcnet_torch.models.dgcnn import EdgeConv
 from epcnet_torch.models.layers import DynamicBatchNorm
 from epcnet_torch.ops.bn_act import activation, bn_act, bn_act_plain
 from epcnet_torch.train.step import build_embed_fn
@@ -118,8 +119,14 @@ def test_forward_act_takes_the_chain_otherwise(case, monkeypatch):
                                       ("pointnetvlad", 15)])
 def test_eval_descriptors_bitwise_the_chains(name, bns, monkeypatch):
     """Each model's eval forward (``build_embed_fn``, inference mode) takes
-    the one pass at every BN, ``bns`` a forward, and its descriptors equal
-    those of the same weights through the chain, bit for bit."""
+    the one pass at every BN of its ``bns`` but those inside DGCNN-VLAD's
+    EdgeConvs (which K10's eval path applies itself, ``ops/edge_max.py``),
+    and its descriptors equal those of the same weights through the chain,
+    bit for bit. For DGCNN-VLAD that holds conv5's BN alone: both runs take
+    the EdgeConvs' eval path, which ``tests/test_torch_dgcnn.py::
+    test_eval_algebra_is_the_published_edgeconv`` holds against the
+    published edges and ``tests/test_torch_cuda.py::test_k10_matches_plain``
+    holds K10 against on the card."""
     cfg = {"epcnet": ModelConfig, "epcnet_l": epcnet_l_config,
            "dgcnn_vlad": dgcnn_vlad_config, "pointnetvlad": pointnetvlad_config}[name](
         num_points=256)
@@ -131,8 +138,8 @@ def test_eval_descriptors_bitwise_the_chains(name, bns, monkeypatch):
     x = np.random.default_rng(3).uniform(-1, 1, (2, 256, 3)).astype(np.float32)
     calls = _spy(monkeypatch)
     got = embed(x)
-    assert len(calls) == bns == sum(isinstance(m, DynamicBatchNorm)
-                                    for m in embed.model.modules())
+    assert bns == sum(isinstance(m, DynamicBatchNorm) for m in embed.model.modules())
+    assert len(calls) == bns - sum(isinstance(m, EdgeConv) for m in embed.model.modules())
     monkeypatch.setattr(DynamicBatchNorm, "forward_act", _chain)
     want = embed(x)
     assert got.shape == (2, cfg.output_dim) and bool(torch.isfinite(got).all())

@@ -18,7 +18,9 @@ by rank their scores agree within fp32's rounding of a D-term sum (a
 near-tie may swap), and on a coarse grid, where every sum is exact, the
 ids are equal. K9 computes eval BN and its activation in the chain's order
 of fp32 operations, each rounded on its own: its output and the models'
-descriptors through it are bit-equal to the chain's.
+descriptors through it are bit-equal to the chain's. K10 takes an exact
+max (min) of fp32 rows and then its twin's order of fp32 operations, each
+rounded on its own: bit-equal to its twin.
 """
 
 import os
@@ -31,11 +33,12 @@ from epcnet_torch.configs import ModelConfig, pointnetvlad_config
 from epcnet_torch.evals import get_recall, retrieval_latency_probe
 from epcnet_torch.ops import adjacency, knn, knn_phases
 from epcnet_torch.ops.bn_act import bn_act_cuda, bn_act_plain
+from epcnet_torch.ops.edge_max import edge_max_cuda, edge_max_plain
 from epcnet_torch.serve import PlaceIndex
 from epcnet_torch.train.step import build_embed_fn
 from epcnet_torch.weights import init_flat_variables
 
-from chip_smoke import k9_case
+from chip_smoke import k9_case, k10_case
 from test_torch_bn_act import _chain, _seed_bn
 
 pytestmark = pytest.mark.cuda
@@ -501,10 +504,11 @@ def test_k9_forward_act_raises_on_what_k9_does_not_take(cuda, case, match):
 
 
 @pytest.mark.parametrize("name,launches", [("epcnet", 6), ("epcnet_l", 6),
-                                           ("dgcnn_vlad", 5)])
+                                           ("dgcnn_vlad", 1)])
 def test_k9_on_the_eval_forward(cuda, name, launches, monkeypatch):
-    """K9 once at every BN of an eval forward (6 for EPC-Net and EPC-Net-L,
-    5 for DGCNN-VLAD), with descriptors bit-equal to the same forward
+    """K9 once at every BN of an eval forward outside DGCNN-VLAD's EdgeConvs
+    (6 for EPC-Net and EPC-Net-L, conv5's alone for DGCNN-VLAD, whose
+    EdgeConvs take K10), with descriptors bit-equal to the same forward
     through the chain."""
     from epcnet_torch.configs import dgcnn_vlad_config, epcnet_l_config
     from epcnet_torch.models.layers import DynamicBatchNorm
@@ -540,6 +544,65 @@ def test_k9_not_in_a_training_step(cuda):
     state, m = build_train_step(cfg, tc)(state, to_device(_blob_batch(5, 2, 2, 4, 1024),
                                                           cuda))
     assert np.isfinite(float(m["loss"])) and bn_act_cuda.launches == before
+
+
+@pytest.mark.parametrize("b,n,k,cout", [
+    (4, 1024, 20, 64), (4, 1024, 20, 128), (4, 1024, 20, 256),  # DGCNN's widths
+    (3, 333, 32, 64), (1, 65, 1, 256), (2, 7, 7, 128),  # k at its limit, k = 1, k = N
+    (5, 1001, 20, 64),  # points that end inside a block
+])
+def test_k10_matches_plain(cuda, b, n, k, cout):
+    """K10 against its plain twin: bit-equal."""
+    y, ids, v = k10_case(b, n, cout, k, cuda, n + cout)
+    before = edge_max_cuda.launches
+    got = edge_max_cuda(y, ids, *v, 1e-5)
+    assert edge_max_cuda.launches == before + 1
+    want = edge_max_plain(y, ids, *v, 1e-5)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, cout)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_k10_rejects_bad_input(cuda):
+    y, ids, v = k10_case(1, 64, 64, 20, cuda, 0)
+    wide = torch.zeros(1, 64, 256, device=cuda)
+    cases = ((y.cpu(), ids, v, "one card"), (y, ids, [t.cpu() for t in v], "one card"),
+             (y.double(), ids, v, "fp32 products"), (y, ids.long(), v, "int32"),
+             (torch.zeros(1, 64, 96, device=cuda), ids, [t[:48] for t in v], "Cout in"),
+             (y[..., :64].contiguous(), ids, [t[:32] for t in v], "Cout in"),
+             (y[..., :127].contiguous(), ids, v, "Cout in"),
+             (y, torch.zeros(1, 64, 33, dtype=torch.int32, device=cuda), v, "k <= 32"),
+             (y, ids[:, :32], v, "beside y"), (y[:, :8], ids[:, :8], v, "beside y"),
+             (wide[..., ::2], ids, v, "contiguous"), (y, ids.transpose(1, 2).contiguous()
+                                                      .transpose(1, 2), v, "contiguous"),
+             (y, ids, [t[:32] for t in v], "fp32 \\[64\\]"),
+             (y, ids, [t.double() for t in v], "fp32 \\[64\\]"))
+    for bad_y, bad_ids, bad_v, match in cases:
+        with pytest.raises(ValueError, match=match):
+            edge_max_cuda(bad_y, bad_ids, *bad_v, 1e-5)
+
+
+def test_k10_on_the_dgcnn_vlad_forward(cuda):
+    """A DGCNN-VLAD eval forward launches K10 at each of its four
+    EdgeConvs, K9 once (conv5), K8 three times and K2 once; a training step
+    (train-mode BN, a graph for backward) launches no K10."""
+    from epcnet_torch.configs import TrainConfig, dgcnn_vlad_config
+    from epcnet_torch.train.state import create_train_state
+    from epcnet_torch.train.step import build_train_step, to_device
+
+    cfg = dgcnn_vlad_config(num_points=1024)
+    flat = init_flat_variables(cfg, seed=5)
+    embed = build_embed_fn(cfg, device=cuda, variables=flat)
+    counters = (edge_max_cuda, bn_act_cuda, knn.knn_features_cuda, knn.knn_cuda)
+    before = [c.launches for c in counters]
+    d = embed(_cloud(13, 4, 1024, cuda))
+    assert [c.launches - b for c, b in zip(counters, before)] == [4, 1, 3, 1]
+    assert d.shape == (4, 256) and bool(torch.isfinite(d).all())
+    tc = TrainConfig(batch_num_queries=1)
+    state = create_train_state(cfg, tc, cuda, variables=flat)
+    before = edge_max_cuda.launches
+    state, m = build_train_step(cfg, tc)(state, to_device(_blob_batch(6, 1, 1, 2, 1024),
+                                                          cuda))
+    assert np.isfinite(float(m["loss"])) and edge_max_cuda.launches == before
 
 
 def test_dgcnn_vlad_on_card(cuda):

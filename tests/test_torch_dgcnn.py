@@ -10,15 +10,18 @@ B=2 submaps of N=256 points, in eval. Tolerances, from the worst of seeds
 - fp32 (the algorithm): every layer's graph equal; descriptors 1.7e-7 ->
   1e-6 (BN's rsqrt against the reference's division, and sums in another
   order).
-- bf16 (the configuration's precision) on the reference's own graphs:
+- bf16 (the configuration's precision; in eval the EdgeConvs take the
+  per-point products and ``edge_max``) on the reference's own graphs:
   layer 0's graph equal (xyz stays fp32); on layers 1-3 bf16's rounding of
-  the features swaps neighbours at near-ties (6-10%, 18-25% and 44-53% of
+  the features swaps neighbours at near-ties (5-8%, 16-20% and 38-46% of
   the points in layers 1, 2, 3 hold a swapped neighbour, seeds 0-3), and the
-  descriptors differ by up to 1.4e-2 -> 2e-2. A model that keeps layer 0's
+  descriptors differ by up to 1.3e-2 -> 2e-2 (the edges, rounded to bf16
+  before and after the Dense: 1.4e-2). A model that keeps layer 0's
   graph in every layer (the graph not built again) reads 2.8e-2 to 4.2e-2
   on the same seeds, so the limit tells the two apart.
-- bf16 with the reference fed the port's graphs: the rounding alone, 2.3e-3
-  -> 4e-3 (EPC-Net's bf16 gap at this size is of that order).
+- bf16 with the reference fed the port's graphs: the rounding alone, 2.0e-3
+  -> 4e-3 (the edges: 2.3e-3; EPC-Net's bf16 gap at this size is of that
+  order).
 
 One training step (Adam) against the reference's autograd on the same
 batch, 1 tuple of 1 query, 1 positive, 2 negatives and the other negative
@@ -44,6 +47,7 @@ import plain_dgcnn_vlad as plain
 from epcnet_torch import losses
 from epcnet_torch.configs import TrainConfig, dgcnn_vlad_config
 from epcnet_torch.models import DGCNNVLAD, dgcnn, get_model, param_count
+from epcnet_torch.ops.edge_max import edge_max_plain
 from epcnet_torch.ops.knn import knn_features, knn_features_plain
 from epcnet_torch.train.state import bn_momentum_schedule, create_train_state
 from epcnet_torch.train.step import build_embed_fn, build_train_step
@@ -286,3 +290,88 @@ def test_spans_name_each_layer():
     assert set(regions) == want | {"dgcnn/lift", "dgcnn/vlad"}
     assert all(r["count"] == 1 for r in regions.values())
 
+
+
+def _edgeconv(c_in, cout, seed, dtype=torch.float64):
+    """An EdgeConv with seeded weights and BN: statistics away from their
+    start, scales of both signs and one zero."""
+    gen = torch.Generator().manual_seed(seed)
+    layer = dgcnn.EdgeConv(c_in, cout, dtype)
+    with torch.no_grad():
+        layer.dense.weight.copy_(torch.randn(cout, 2 * c_in, generator=gen) / (2 * c_in) ** 0.5)
+        bn = layer.bn
+        bn.mean.copy_(torch.randn(cout, generator=gen) * 0.5)
+        bn.var.copy_(torch.rand(cout, generator=gen) * 2 + 0.05)
+        bn.scale.copy_(torch.randn(cout, generator=gen) * 0.4 + 1)
+        bn.scale[1::3] *= -1
+        bn.scale[0] = 0
+        bn.bias.copy_(torch.randn(cout, generator=gen) * 0.3)
+    return layer
+
+
+def _ids(seed, b, n, k):
+    """int32 id lists [b, n, k] with repeats, each holding the point itself."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, n, (b, n, k), generator=gen)
+    ids[..., 0] = torch.arange(n)
+    ids[..., 1] = ids[..., 2]  # a repeat in every list
+    return ids.to(torch.int32)
+
+
+@pytest.mark.parametrize("c_in,cout", [(3, 64), (64, 128), (128, 256)])
+def test_eval_algebra_is_the_published_edgeconv(c_in, cout):
+    """``edge_max_plain`` fed ``x @ [W1; W2]ᵀ`` against the published
+    EdgeConv (gather, concat, Dense, BN, LeakyReLU, amax; the module in fp64
+    takes it), both in fp64: equal within 1e-12."""
+    layer = _edgeconv(c_in, cout, c_in + cout).double()
+    assert bool((layer.bn.scale < 0).any() and (layer.bn.scale == 0).any())
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(2, 96, c_in, generator=gen, dtype=torch.float64)
+    ids = _ids(c_in, 2, 96, K)
+    with torch.no_grad():
+        want = layer(x, ids)
+        w = layer.dense.weight
+        y = x @ torch.cat([w[:, :c_in], w[:, c_in:]]).t()
+        bn = layer.bn
+        got = edge_max_plain(y, ids, bn.mean, bn.var, bn.scale, bn.bias, bn.epsilon,
+                             dtype=torch.float64)
+    assert got.dtype == want.dtype == torch.float64 and got.shape == (2, 96, cout)
+    assert float((got - want).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("case", ["eval", "train", "grad", "float32", "float64"])
+def test_eval_path_only_where_no_graph_is_built(case, monkeypatch):
+    """A bf16 EdgeConv in eval without grad takes the product over the
+    points and ``edge_max`` (no gathered features); training, grad-enabled
+    calls, fp32 and fp64 keep the published edges. The eval path is within
+    two bf16 roundings of the published function in fp64 on the same inputs
+    (the weights rounded to bf16, as the bf16 Dense takes them)."""
+    dtype = {"float32": torch.float32, "float64": torch.float64}.get(case, torch.bfloat16)
+    layer = _edgeconv(16, 64, 2, dtype)
+    if case == "float64":
+        layer.double()
+    calls = {"gather": 0, "edge_max": 0}
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(dgcnn, "gather_neighbors" if name == "gather" else name, counted)
+
+    spy("gather", dgcnn.gather_neighbors)
+    spy("edge_max", dgcnn.edge_max)
+    x = torch.randn(2, 80, 16, generator=torch.Generator().manual_seed(3)).to(dtype)
+    ids = _ids(4, 2, 80, K)
+    with torch.set_grad_enabled(case in ("train", "grad")):
+        got = layer(x, ids, train=case == "train")
+    assert got.shape == (2, 80, 64) and got.dtype == dtype
+    assert calls == ({"gather": 0, "edge_max": 1} if case == "eval" else
+                     {"gather": 1, "edge_max": 0})
+    assert (layer.bn.pending is not None) == (case == "train")
+    if case == "eval":
+        exact = _edgeconv(16, 64, 2).double()
+        with torch.no_grad():
+            exact.dense.weight.copy_(layer.dense.weight.to(dtype))
+            want = exact(x.double(), ids)
+        # two bf16 roundings (the BN output, then the LeakyReLU's product)
+        assert bool(((got.double() - want).abs() <= 2 ** -7 * want.abs() + 1e-5).all())
