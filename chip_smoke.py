@@ -6,13 +6,16 @@
 Builds every CUDA kernel of the port from ``epcnet_torch/csrc`` with nvcc
 (K1/K3 ``knn_adj.cu``, K2 ``knn_ids.cu``, K4 ``packed_mean.cu``, K5
 ``knn_phase.cu``, K6 ``knn_pipelined.cu``, K7 ``indicator_mean.cu``, K8
-``knn_features.cu``, K9 ``bn_act.cu``, K10 ``edge_max.cu``; K1-K3, K5, K6
+``knn_features.cu``, K9 ``bn_act.cu``, K10 ``edge_max.cu``, K11
+``sparse_conv.cu``; K1-K3, K5, K6
 and K8 on the tiled core ``knn_tile.cuh`` for k (K5: rounds) <= 32; the
 ptxas report of every tiled kernel, of K4, K7, K9 and K10 must show no
 spill), holds each against its plain PyTorch version on the card (K9
 bit-equal at 131,072 and 2,621,440 rows, K10 at DGCNN-VLAD's B=32, N=4096,
 k=20 and Cout 64, 128, 256), runs DGCNN-VLAD ("dgcnn_vlad":
-``dgcnn_vlad_phase``), builds the full-width EPC-Net
+``dgcnn_vlad_phase``) and MinkLoc3Dv2 ("minkloc3dv2": ``minkloc3dv2_phase``,
+K11 at each of its convolutions; after the kNN trace and training phases,
+"minkloc3dv2 records": a graph replay's kernel records), builds the full-width EPC-Net
 (the default ModelConfig: 2,742,144 parameters, k=20, bf16) from seeded
 random weights, and serves it on each adjacency route:
 
@@ -174,6 +177,7 @@ from epcnet_torch.configs import (
     ModelConfig,
     TrainConfig,
     dgcnn_vlad_config,
+    minkloc3dv2_config,
     epcnet_l_config,
     pointnetvlad_config,
 )
@@ -181,10 +185,11 @@ from epcnet_torch.data import load_pc_files_native, load_pickle, native_availabl
 from epcnet_torch.evals import embed_entries, evaluate_dataset, get_recall
 from epcnet_torch.models import get_model, param_count
 from epcnet_torch.models.epcnet import adjacency_route
+from epcnet_torch.models import minkloc
 from epcnet_torch.models.dgcnn import EdgeConv
 from epcnet_torch.models.layers import DynamicBatchNorm
 from epcnet_torch.models.vlad_head import compute_dtype
-from epcnet_torch.ops import _build, adjacency, bn_act, edge_max, knn, knn_phases, sampling
+from epcnet_torch.ops import _build, adjacency, bn_act, edge_max, knn, knn_phases, sampling, sparse
 from epcnet_torch.ops.matmul import matmul_f32acc
 from epcnet_torch.parallel.collectives import GLOO_CUDA_OPS
 from epcnet_torch.scripts import (
@@ -247,6 +252,7 @@ COUNTERS = {
     "K8": (knn.knn_features_cuda, "launches"),
     "K9": (bn_act.bn_act_cuda, "launches"),
     "K10": (edge_max.edge_max_cuda, "launches"),
+    "K11": (sparse.sparse_conv_cuda, "launches"),
 }
 
 
@@ -258,6 +264,13 @@ DGCNN_PARAMS = 17_592_256
 DGCNN_BATCH = 32
 DGCNN_REF_CLOUDS = 8
 DGCNN_TOL = 2e-2
+# MinkLoc3Dv2 at the published widths (tests/test_torch_minkloc.py), B=32 of
+# N=4096; the first MINKLOC_REF_CLOUDS submaps against the plain fp32
+# reference within the CPU tests' bf16 limit (relative: not unit-norm)
+MINKLOC_PARAMS = 2_663_567
+MINKLOC_BATCH = 32
+MINKLOC_REF_CLOUDS = 8
+MINKLOC_TOL = 1.5e-2
 BF16_PEAK_FLOPS = 989e12  # H100 SXM tensor cores, dense
 
 
@@ -626,16 +639,20 @@ def published_edgeconv():
         EdgeConv.forward = real
 
 
-def plain_dgcnn_vlad():
-    """``tests/plain_dgcnn_vlad.py``, the plain reference (torch only)."""
+def plain_module(name: str):
+    """``tests/<name>.py``, a plain reference (torch only)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "plain_dgcnn_vlad.py")
-    spec = importlib.util.spec_from_file_location("plain_dgcnn_vlad", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def plain_dgcnn_vlad():
+    """``tests/plain_dgcnn_vlad.py``, the plain reference (torch only)."""
+    return plain_module("plain_dgcnn_vlad")
 
 
 def dgcnn_vlad_phase(dev) -> dict:
@@ -752,6 +769,182 @@ def dgcnn_vlad_phase(dev) -> dict:
             "k8_vs_plain_rows_differ": k8_differ, "k8": k8, "k10": k10,
             "embed_b32_ms": embed_ms, "embed_peak_bytes": peak,
             "embed_b32_edges_ms": embed_edges_ms, "embed_edges_peak_bytes": peak_edges}
+
+
+def kernel_records(fn, patterns) -> dict:
+    """One call of ``fn`` under the profiler, the card synchronised either
+    side: ``records``, the card's kernel records whose name holds each of
+    ``patterns`` (what a CUDA graph's replay launches, which no wrapper
+    counts), and ``busy_ms``, the union of every device record's interval."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return {"records": {p: sum(p in e.name for e in device) for p in patterns},
+            "busy_ms": busy / 1e3}
+
+
+def k11_inputs(model, x) -> list:
+    """(conv name, its input, its map, its weight) of every convolution over
+    a kernel map in one eval forward of ``model`` on ``x``, in order."""
+    seen = []
+    hooks = [mod.register_forward_hook(
+        lambda mod, args, out, name=name: seen.append((name, args[0], args[1],
+                                                       mod.offset_weight)))
+        for name, mod in model.named_modules() if isinstance(mod, minkloc.SparseConv)]
+    try:
+        with torch.inference_mode():
+            model(x)  # eagerly: a graph's replay would run no hook
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def minkloc3dv2_phase(dev) -> dict:
+    """MinkLoc3Dv2 at the published widths, B=32 submaps of N=4096. The
+    model called eagerly, launch counts zeroed before it: 15 K11 (conv0,
+    four stride-2 convs, eight 3³ convs, two transposed convs) and 16 K9
+    (every BN: nine with their ReLU, seven alone), no K1, K2, K7, K8 or
+    K10. Through ``build_embed_fn`` and ``PlaceIndex.embed`` (a CUDA
+    graph's replay, captured by the warm-up): no wrapper called (the
+    replay's kernel records: ``minkloc3dv2_records``, which profiles after
+    the kNN trace phase). The first 8 submaps' descriptors
+    against the plain fp32 reference (a cloud at a time; relative, as they
+    are not unit-norm), and the model's counters against the reference's
+    voxel and pair counts for them. At each convolution, on its own input
+    and map (the eager forward's, hooked): K11 against its plain twin
+    (conv0's one-channel kernel bit-equal, the tiled kernel within one bf16
+    ulp: its sums run in the tensor cores' order), K11's time beside its
+    bound (the larger of 2 · pairs · Cin · Cout at the bf16 peak and each
+    input row, the weights and each output row once at the card's
+    bandwidth) and the twin's. The voxels and maps' time, the embed's time
+    (the CUDA graph's replay, and the eager forward) and peak memory, voxels
+    a submap at each stride."""
+    cfg = minkloc3dv2_config()
+    n = cfg.num_points
+    flat = init_flat_variables(cfg, seed=0)
+    embed = build_embed_fn(cfg, variables=flat)
+    model = embed.model
+    assert param_count(model) == MINKLOC_PARAMS, param_count(model)
+    sub = submaps(np.random.default_rng(24), MINKLOC_BATCH, n)
+    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=MINKLOC_BATCH, num_points=n)
+    ix.embed(sub)  # warm: the eager forward and the graph's capture
+    x = torch.tensor(sub, device=dev)
+    zero_counts()
+    with torch.inference_mode():
+        model(x)
+    counts = read_counts()
+    assert (counts["K11"], counts["K9"]) == (15, 16), counts
+    assert not any(counts[k] for k in ("K1", "K2", "K7", "K8", "K10")), counts
+    zero_counts()
+    desc = ix.embed(sub)
+    assert not any(read_counts().values()), read_counts()
+
+    plain = plain_module("plain_minkloc3dv2")
+    w = {key: v.float() for key, v in model.state_dict().items()}
+    before = model.counters()
+    with torch.inference_mode():
+        model(x[:MINKLOC_REF_CLOUDS])
+    after = model.counters()
+    got_counts = {part: {key: after[part][key] - before[part][key] for key in after[part]}
+                  for part in ("voxels", "pairs")}
+    gaps = []
+    with torch.no_grad():
+        want_counts = plain.counts(x[:MINKLOC_REF_CLOUDS])
+        for i in range(MINKLOC_REF_CLOUDS):
+            d_ref = plain.forward(w, x[i:i + 1])[0]
+            d = torch.tensor(desc[i], device=dev)
+            gaps.append(float((d - d_ref).norm() / d_ref.norm()))
+    assert got_counts == want_counts, (got_counts, want_counts)
+    assert max(gaps) <= MINKLOC_TOL, gaps
+
+    k11 = {}
+    for name, xin, kmap, weight in k11_inputs(model, x):
+        got = sparse.sparse_conv_cuda(xin, kmap, weight)
+        want = sparse.sparse_conv_plain(xin, kmap, weight)
+        if xin.shape[1] == 1:
+            assert torch.equal(got, want), name
+        else:
+            # one bf16 ulp, and fp32's rounding of sums of terms of the output's size
+            tol = bf16_spacing(want.float()) + 1e-5 * float(want.float().abs().max())
+            excess = (got.float() - want.float()).abs() - tol
+            assert float(excess.max()) <= 0, (name, float(excess.max()))
+        k, cin, cout = weight.shape
+        live = kmap.nbr >= 0
+        pairs = int(live.sum())
+        # the voxels (the arrays hold padding past them): outputs with a pair,
+        # inputs a pair reads
+        rows_out, rows_in = int(live.any(1).sum()), int(torch.unique(kmap.nbr[live]).numel())
+        t_bytes = 2 * (rows_in * cin + k * cin * cout + rows_out * cout) / HBM_BYTES_PER_S
+        t_ops = 2 * pairs * cin * cout / BF16_PEAK_FLOPS
+        k11[name] = {
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "bytes": 2 * (rows_in * cin + k * cin * cout + rows_out * cout),
+            "ops": 2 * pairs * cin * cout,
+            "ms": cuda_ms(lambda: sparse.sparse_conv_cuda(xin, kmap, weight), 20),
+            "plain_ms": cuda_ms(lambda: sparse.sparse_conv_plain(xin, kmap, weight), 3),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "rows_in": rows_in, "rows_out": rows_out, "k": k, "cin": cin,
+            "cout": cout, "pairs": pairs, "pairs_per_row_offset": pairs / max(1, rows_out * k)}
+        del got, want
+
+    def maps():
+        return model.build_maps(sparse.SparseCoordinates(x, minkloc.QUANTIZATION_STEP, 16))
+
+    with torch.inference_mode():
+        kmap_ms = cuda_ms(maps, 5)
+        coords = sparse.SparseCoordinates(x, minkloc.QUANTIZATION_STEP, 16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.inference_mode():
+        embed_ms = cuda_ms(lambda: embed(x), 5)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    with torch.inference_mode():
+        eager_ms = cuda_ms(lambda: model(x), 5)
+    return {"params": param_count(model), "launches": counts, "desc_rel_gap": max(gaps),
+            "desc_rel_gaps": gaps, "counts_ref_clouds": got_counts, "k11": k11,
+            "k11_ms": sum(v["ms"] for v in k11.values()),
+            "k11_bound_ms": sum(v["bound_ms"] for v in k11.values()),
+            "voxels_per_submap": {s: int(m) / MINKLOC_BATCH for s, m in coords.rows.items()},
+            "kmap_b32_ms": kmap_ms, "embed_b32_ms": embed_ms, "embed_peak_bytes": peak,
+            "embed_b32_eager_ms": eager_ms}
+
+
+def minkloc3dv2_records(dev) -> dict:
+    """The kernel records of MinkLoc3Dv2's eager forward and of its graph's
+    replay through ``PlaceIndex.embed`` (B=32, N=4096): 15 K11 and 16 K9
+    each, the replay calling no wrapper; each one's device busy time."""
+    cfg = minkloc3dv2_config()
+    embed = build_embed_fn(cfg, variables=init_flat_variables(cfg, seed=0))
+    sub = submaps(np.random.default_rng(24), MINKLOC_BATCH, cfg.num_points)
+    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=MINKLOC_BATCH,
+                    num_points=cfg.num_points)
+    ix.embed(sub)  # warm: the eager forward and the graph's capture
+    x = torch.tensor(sub, device=dev)
+    kinds = ("sparse_conv", "bn_act_kernel")  # K11's two kernels, K9's
+    want = {"sparse_conv": 15, "bn_act_kernel": 16}
+    with torch.inference_mode():
+        eager = kernel_records(lambda: embed.model(x), kinds)
+    zero_counts()
+    replay = kernel_records(lambda: ix.embed(sub), kinds)
+    assert not any(read_counts().values()), read_counts()
+    assert eager["records"] == want and replay["records"] == want, (eager, replay)
+    return {"eager": eager, "replay": replay}
 
 
 def misaligned(x):
@@ -1778,7 +1971,9 @@ def main() -> int:
                # K9: ReLU and LeakyReLU
                "bn_act": ("bn_act_kernel", 2),
                # K10: DGCNN's 3 widths
-               "edge_max": ("edge_max_kernel", 3)}
+               "edge_max": ("edge_max_kernel", 3),
+               # K11: MinkLoc3Dv2's 7 (Cin, Cout) pairs and the one-channel kernel
+               "sparse_conv": ("sparse_conv", 8)}
     spills = {}
     for src, (part, count) in watched.items():
         if src in reports:
@@ -1789,7 +1984,7 @@ def main() -> int:
     dense = sum("dense_tiled" in name for name in spills)
     assert dense in (0, 8), f"{dense} dense tiled kernels in the ptxas report"
     log(f"phase build: {len(spills)} kernels spill 0 bytes (the tiled core's, {dense} of "
-        "them K1's, K5's and K6's on it, K4's, K7's, K8's, K9's and K10's)" if spills else
+        "them K1's, K5's and K6's on it, K4's, K7's, K8's, K9's, K10's and K11's)" if spills else
         "phase build: kernels were built before; no ptxas report")
 
     # -- 2. K1 against its plain version -----------------------------------
@@ -2014,6 +2209,16 @@ def main() -> int:
         f"{dgcnn['k8_vs_plain_rows_differ']}")
     log(json.dumps({"dgcnn_vlad": dgcnn}))
 
+    # -- 5c. MinkLoc3Dv2: K11 and the model --------------------------------
+    with Phase("minkloc3dv2"):
+        mink = minkloc3dv2_phase(dev)
+    log(f"phase minkloc3dv2: {mink['params']} params, B={MINKLOC_BATCH}, N=4096, launches "
+        f"{mink['launches']}; descriptors against the plain fp32 reference max relative "
+        f"{mink['desc_rel_gap']}; embed {mink['embed_b32_ms']:.2f} ms, voxels and maps "
+        f"{mink['kmap_b32_ms']:.2f} ms, K11 {mink['k11_ms']:.3f} ms over its 15 convs "
+        f"(bound {mink['k11_bound_ms']:.3f}); voxels a submap {mink['voxels_per_submap']}")
+    log(json.dumps({"minkloc3dv2": mink}))
+
     # -- 6. the full-width model from seeded weights -----------------------
     with Phase("model"):
         flat = init_flat_variables(cfg, seed=0)
@@ -2194,6 +2399,14 @@ def main() -> int:
         quality, quality_counts = train_quality_phase(dev, tmp)
         cache = compile_cache_phase(tmp)
 
+    # -- 10f. MinkLoc3Dv2's kernel records: what its graph's replay launches
+    with Phase("minkloc3dv2 records"):
+        mink_records = minkloc3dv2_records(dev)
+    log(f"phase minkloc3dv2 records: a replay's {mink_records['replay']['records']}, device "
+        f"busy {mink_records['replay']['busy_ms']:.3f} ms a batch (eager "
+        f"{mink_records['eager']['busy_ms']:.3f})")
+    log(json.dumps({"minkloc3dv2_records": mink_records}))
+
     # -- 11. timings, at the shapes the serving paths give each kernel -----
     with Phase("timings"):
         kernels = []
@@ -2202,6 +2415,7 @@ def main() -> int:
                        **served["counts"], "evaluate": eval_counts, "knn trace": trace_counts,
                        **train_counts, "capacity": cap_path_counts, **md_counts,
                        "benchmark cli": bench_cli_counts, "dgcnn_vlad": dgcnn["launches"],
+                       "minkloc3dv2": mink["launches"],
                        **quality_counts}
 
         def entry(name, source, replaces, launches, err_, ms, plain, nbytes, ops,
@@ -2366,6 +2580,19 @@ def main() -> int:
                   "K10", library="none: no PyTorch call gathers, reduces and applies BN in "
                   "one pass", edgeconv_ms=t10["edgeconv_ms"],
                   edgeconv_edges_ms=t10["edgeconv_edges_ms"])
+
+        # K11: MinkLoc3Dv2's 15 convolutions over a kernel map at B=32, N=4096,
+        # on each one's own input and map: the minkloc3dv2 phase's times; the
+        # bound takes the operations at the bf16 peak (tensor cores)
+        for conv, t11 in mink["k11"].items():
+            entry(f"sparse_conv ({conv})", "sparse_conv.cu", "none: the JAX package has no "
+                  "MinkLoc3Dv2; the sparse convolution over a kernel map "
+                  "(epcnet_torch/models/minkloc.py)", mink["launches"]["K11"],
+                  t11["max_abs_err"], t11["ms"], t11["plain_ms"], t11["bytes"], t11["ops"],
+                  [t11["rows_in"], t11["cin"], t11["cout"]], "K11",
+                  library="none: no PyTorch call gathers rows by an offset table and "
+                  "multiplies them by per-offset weights", bound_ms=t11["bound_ms"],
+                  bound_by=t11["bound_by"], offsets=t11["k"], pairs=t11["pairs"])
 
         # K5 and K6: the trace path's shape, B=8, N=4096; their times are the
         # trace phase's (K5: phase C, k distinct values and the count)

@@ -29,7 +29,7 @@ class ModelConfig:
     readable reference".
     """
 
-    name: str = "epcnet"  # epcnet | epcnet_l | pointnetvlad | dgcnn_vlad
+    name: str = "epcnet"  # epcnet | epcnet_l | pointnetvlad | dgcnn_vlad | minkloc3dv2
     num_points: int = 4096
     knn_k: int = 20  # [MEMORY-LOW] spatial-adjacency kNN size
     # ProxyConv stack output channels [MEMORY-LOW ≈ 64,64,64,128]:
@@ -128,6 +128,27 @@ def dgcnn_vlad_config(**kw: Any) -> ModelConfig:
         vlad_groups=1,
         vlad_group_dim=256,
         adjacency_format="gather",
+    )
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def minkloc3dv2_config(**kw: Any) -> ModelConfig:
+    """MinkLoc3Dv2: MinkFPN with ECA blocks and GeM on sparse voxels
+    [LINEAGE: jac99/MinkLoc3Dv2, its MinkLoc3Dv2 model config;
+    arXiv:2203.00972], at the published widths. A model of the port alone
+    (``models/minkloc.py``); the JAX package has none. It reuses the fields
+    it needs: ``proxyconv_channels`` holds the planes of the four levels,
+    ``lift_channels`` the top-down width (``feature_size``), and
+    ``feature_dim`` = ``output_dim`` = that width (GeM keeps it). The rest
+    of the published settings (layers, top-down count, conv0's kernel, the
+    quantization step, ECA's rule, GeM's p) are constants of the model."""
+    base = dict(
+        name="minkloc3dv2",
+        proxyconv_channels=(64, 128, 64, 32),
+        lift_channels=(256,),
+        feature_dim=256,
+        output_dim=256,
     )
     base.update(kw)
     return ModelConfig(**base)

@@ -1,5 +1,5 @@
-"""Model zoo of the port: EPC-Net, EPC-Net-L, PointNetVLAD and DGCNN-VLAD
-(the last in the port alone). Each model's
+"""Model zoo of the port: EPC-Net, EPC-Net-L, PointNetVLAD, DGCNN-VLAD and
+MinkLoc3Dv2 (the last two in the port alone). Each model's
 ``forward(points, train=False, momentum=0.9)`` takes the JAX call's
 arguments; ``layers.commit_batch_stats`` applies a train forward's BN
 statistics."""
@@ -13,6 +13,7 @@ from epcnet_torch.configs import (
     ModelConfig,
     dgcnn_vlad_config,
     epcnet_l_config,
+    minkloc3dv2_config,
     pointnetvlad_config,
 )
 from epcnet_torch.device import resolve_device
@@ -26,11 +27,12 @@ from epcnet_torch.models.layers import (
     TNet,
     commit_batch_stats,
 )
+from epcnet_torch.models.minkloc import MinkLoc3Dv2
 from epcnet_torch.models.pointnetvlad import PointNetVLAD
 from epcnet_torch.models.vlad_head import GVLADHead
 
 MODELS = {"epcnet": EPCNet, "epcnet_l": EPCNet, "pointnetvlad": PointNetVLAD,
-          "dgcnn_vlad": DGCNNVLAD}
+          "dgcnn_vlad": DGCNNVLAD, "minkloc3dv2": MinkLoc3Dv2}
 
 
 def model_class(cfg: ModelConfig) -> type[nn.Module]:
@@ -56,6 +58,7 @@ __all__ = [
     "EPCNet",
     "PointNetVLAD",
     "DGCNNVLAD",
+    "MinkLoc3Dv2",
     "GVLADHead",
     "ProxyConv",
     "SharedMLP",
@@ -68,4 +71,5 @@ __all__ = [
     "epcnet_l_config",
     "pointnetvlad_config",
     "dgcnn_vlad_config",
+    "minkloc3dv2_config",
 ]

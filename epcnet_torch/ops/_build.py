@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 
 # every kernel source of the port, csrc/<name>.cu
 SOURCES = ("knn_adj", "knn_ids", "packed_mean", "knn_phase", "knn_pipelined",
-           "indicator_mean", "knn_features", "bn_act", "edge_max")
+           "indicator_mean", "knn_features", "bn_act", "edge_max", "sparse_conv")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -45,6 +45,7 @@ from epcnet_torch.models.layers import set_bn_group
 from epcnet_torch.parallel.collectives import all_reduce_, group_rank, group_size
 from epcnet_torch.parallel.mesh import data_block
 from epcnet_torch.train.state import TrainState, bn_momentum_schedule, lr_schedule
+from epcnet_torch.utils.cuda_graphs import GraphedForward
 from epcnet_torch.utils.profiling import profile_region
 from epcnet_torch.weights import init_flat_variables, load_flat_variables
 
@@ -271,16 +272,29 @@ def model_embed_fn(model: nn.Module) -> Callable[[torch.Tensor], torch.Tensor]:
     """``embed(points[B, N, 3]) -> [B, output_dim]`` with ``model`` as it
     stands (its current weights, running BN statistics) under
     ``torch.inference_mode``, on the model's device; ``points`` may be numpy
-    or a tensor. Carries ``embed.model`` and ``embed.device``. Mining and
-    the recall hook embed the training model through it."""
+    or a tensor. Carries ``embed.model``, ``embed.device`` and
+    ``embed.graphed`` (the ``GraphedForward`` or None). Mining and
+    the recall hook embed the training model through it.
+
+    A model that sets ``graphable`` (MinkLoc3Dv2 on bf16: its eval forward
+    fixes every shape by B and N and never waits for the card past its
+    ``check_input``) is replayed on the card as a CUDA graph of its
+    ``forward_checked``, one a batch shape (``utils/cuda_graphs.py``)."""
     dev = next(model.parameters()).device
+    graphed = (GraphedForward(model.forward_checked)
+               if dev.type == "cuda" and getattr(model, "graphable", False) else None)
 
     def embed(points) -> torch.Tensor:
         with torch.inference_mode():
-            return model(torch.as_tensor(points, dtype=torch.float32, device=dev))
+            x = torch.as_tensor(points, dtype=torch.float32, device=dev)
+            if graphed is None:
+                return model(x)
+            model.check_input(x)
+            return graphed(x)
 
     embed.model = model
     embed.device = dev
+    embed.graphed = graphed
     return embed
 
 

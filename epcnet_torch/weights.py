@@ -161,7 +161,9 @@ def init_flat_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray
     stats are non-trivial (mean ~ N(0, 0.1²), var ~ U(0.5, 1.5)) so that BN
     does real work in every check. A T-Net's ``transform_w`` is N(0,
     (0.1/16)²) and its ``transform_b`` the identity plus N(0, 0.05²), so
-    each transform moves the points by ~0.1-0.2 of their scale."""
+    each transform moves the points by ~0.1-0.2 of their scale. A sparse
+    convolution's ``offset_weight`` [K, Cin, Cout] is He-scaled over its
+    K·Cin inputs, and GeM's ``p`` starts at 3, as published."""
     rng = np.random.default_rng(seed)
     head = ("gvlad.", "netvlad.")
     flat = {}
@@ -176,6 +178,10 @@ def init_flat_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray
         elif leaf == "transform_b":  # [dim²], the identity plus noise
             dim = int(round(np.sqrt(shape[0])))
             v = np.eye(dim).reshape(-1) + rng.normal(0.0, 0.05, shape)
+        elif leaf == "offset_weight":  # [K, Cin, Cout]
+            v = rng.normal(0.0, np.sqrt(2.0 / (shape[0] * shape[1])), shape)
+        elif leaf == "p":  # GeM's exponent
+            v = np.full(shape, 3.0)
         elif key.endswith("group_w"):  # [G, in, out]
             v = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
         elif key.endswith("centroids"):
@@ -214,16 +220,20 @@ def init_train_variables(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarra
     flax's variance scaling does), biases zero, BN scale 1, bias 0 and
     running stats (0, 1), centroids normal with std 1/sqrt(D), and a T-Net
     the identity (``transform_w`` zero). The values are not JAX's: its
-    init stream is ``jax.random``'s. ``init_flat_variables`` is the other
-    seeded init, the checks' (non-trivial BN, sharp VLAD assignment)."""
+    init stream is ``jax.random``'s. A sparse convolution's
+    ``offset_weight`` is LeCun normal over its K·Cin inputs, and GeM's ``p``
+    starts at 3. ``init_flat_variables`` is the other seeded init, the
+    checks' (non-trivial BN, sharp VLAD assignment)."""
     rng = np.random.default_rng(seed)
     flat = {}
     for key, name, shape in _flat_leaves(cfg):
         leaf = key.rsplit(".", 1)[-1]
         if leaf == "weight":  # [in, out]
             v = _lecun_normal(rng, shape, shape[0])
-        elif key.endswith("group_w"):  # [G, in, out]
+        elif key.endswith("group_w") or leaf == "offset_weight":  # [G, in, out], [K, in, out]
             v = _lecun_normal(rng, shape, shape[0] * shape[1])
+        elif leaf == "p":
+            v = np.full(shape, 3.0)
         elif key.endswith("centroids"):
             v = rng.normal(0.0, 1.0 / np.sqrt(shape[1]), shape)
         elif leaf == "transform_b":

@@ -20,7 +20,11 @@ ids are equal. K9 computes eval BN and its activation in the chain's order
 of fp32 operations, each rounded on its own: its output and the models'
 descriptors through it are bit-equal to the chain's. K10 takes an exact
 max (min) of fp32 rows and then its twin's order of fp32 operations, each
-rounded on its own: bit-equal to its twin.
+rounded on its own: bit-equal to its twin. K11's one-channel kernel adds
+exact products in its twin's offset order: bit-equal; its tiled kernel sums
+bf16 products in fp32 on the tensor cores where the twin adds an offset's
+cuBLAS product at a time: within 1 bf16 ulp plus fp32's rounding of sums of
+terms of the output's size.
 """
 
 import os
@@ -1165,3 +1169,161 @@ def test_staged_gloo_collectives_of_cuda_tensors(cuda, tmp_path):
 
     for o in spawn("cuda_collectives", 2, str(tmp_path), timeout=120):
         assert all(bool(v) for v in o.values()), o
+
+
+@pytest.mark.parametrize("cin,cout,k", [(1, 64, 125), (32, 32, 27), (64, 32, 27),
+                                        (64, 64, 8), (64, 64, 27), (64, 128, 27),
+                                        (128, 64, 27), (128, 128, 8), (128, 128, 27),
+                                        (256, 256, 8)])
+def test_k11_matches_plain(cuda, cin, cout, k):
+    """K11 against its plain twin on a random map with missing inputs,
+    whole tiles without a pair and a ragged last tile."""
+    from epcnet_torch.ops import sparse
+
+    g = torch.Generator(device=cuda).manual_seed(cin * cout + k)
+    rows_in, rows_out = 3001, 2000 + k
+    x = torch.randn(rows_in, cin, device=cuda, generator=g).to(torch.bfloat16)
+    nbr = torch.randint(-1, rows_in, (rows_out, k), device=cuda, generator=g,
+                        dtype=torch.int32)
+    nbr[nbr % 3 == 0] = -1
+    nbr[64:200] = -1
+    w = torch.randn(k, cin, cout, device=cuda, generator=g) / (k * cin) ** 0.5
+    km = sparse.KernelMap(nbr, rows_in)
+    before = sparse.sparse_conv_cuda.launches
+    got = sparse.sparse_conv_cuda(x, km, w)
+    want = sparse.sparse_conv_plain(x, km, w)
+    assert sparse.sparse_conv_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (rows_out, cout)
+    assert float(got[64:200].abs().max()) == 0.0
+    if cin == 1:
+        assert torch.equal(got, want)
+    else:
+        wf = want.float()
+        spacing = BF16_ULP * torch.exp2(torch.floor(torch.log2(wf.abs().clamp_min(2.0 ** -126))))
+        tol = spacing + 1e-5 * float(wf.abs().max())
+        assert bool(((got.float() - wf).abs() <= tol).all())
+
+
+def _minkloc_clouds(seed, b, n=1024, spread=None):
+    """Blob submaps: clusters of points around a few centres, in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-0.8, 0.8, (b, 6, 3))
+    members = centers[:, rng.integers(0, 6, n)]
+    spread = rng.uniform(0.02, 0.2) if spread is None else spread
+    x = members + spread * rng.standard_normal((b, n, 3))
+    return np.clip(x, -1, 1).astype(np.float32)
+
+
+def _rel_gap(a, b):
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float(((a - b).norm(dim=1) / b.norm(dim=1)).max())
+
+
+def test_minkloc3dv2_on_card(cuda):
+    """MinkLoc3Dv2 through ``build_embed_fn`` on the card. The model called
+    eagerly launches 15 K11 and 16 K9 (their wrappers' counts). The embed's
+    first call runs it eagerly and captures it as a CUDA graph (the capture
+    records each launch once more: 30 and 32); a replay calls no wrapper,
+    and its trace holds 15 K11 and 16 K9 kernel records. Each output within
+    the CPU tests' bf16 limit (6e-3 relative) of the plain fp32 reference
+    and within 1e-3 of the eager one (fp32 sums in atomics' order); the
+    counters equal the reference's counts three times over (the eager call,
+    the first embed, the replay; a capture adds none)."""
+    import plain_minkloc3dv2 as plain
+    from epcnet_torch.configs import minkloc3dv2_config
+    from epcnet_torch.ops import sparse
+
+    from chip_smoke import kernel_records
+
+    cfg = minkloc3dv2_config(num_points=1024)
+    embed = build_embed_fn(cfg, device=cuda, variables=init_flat_variables(cfg, seed=2))
+    x = torch.tensor(_minkloc_clouds(5, 4), device=cuda)
+    w = {key: v.float() for key, v in embed.model.state_dict().items()}
+    with torch.no_grad():
+        want = plain.forward(w, x)
+
+    def launched(fn):
+        k11, k9 = sparse.sparse_conv_cuda.launches, bn_act_cuda.launches
+        out = fn()
+        return out, (sparse.sparse_conv_cuda.launches - k11, bn_act_cuda.launches - k9)
+
+    with torch.inference_mode():
+        eager, made = launched(lambda: embed.model(x))
+    assert made == (15, 16) and _rel_gap(eager, want) <= 6e-3
+    first, made = launched(lambda: embed(x))
+    assert made == (30, 32) and len(embed.graphed.graphs) == 1
+    outs = []
+    records, made = launched(lambda: kernel_records(lambda: outs.append(embed(x)),
+                                                    ("sparse_conv", "bn_act_kernel")))
+    assert made == (0, 0)
+    assert records["records"] == {"sparse_conv": 15, "bn_act_kernel": 16}, records
+    for out in (first, outs[0]):
+        assert _rel_gap(out, want) <= 6e-3 and _rel_gap(out, eager) <= 1e-3
+    counts = embed.model.counters()
+    ref = plain.counts(x)
+    assert counts["forwards"] == 3
+    assert counts["voxels"] == {s: 3 * v for s, v in ref["voxels"].items()}
+    assert counts["pairs"] == {m: 3 * v for m, v in ref["pairs"].items()}
+
+
+def test_minkloc3dv2_embeds_from_two_threads(cuda):
+    """Two threads embed different submaps through one ``PlaceIndex`` at
+    once, one on the default stream and one on a stream of its own, as a
+    serving index's handlers and its query worker do: every replay of the
+    shared graph gives each thread its own descriptors (within 1e-3 of
+    them alone; another batch's lie far off)."""
+    import threading
+
+    from epcnet_torch.configs import minkloc3dv2_config
+
+    cfg = minkloc3dv2_config(num_points=1024)
+    embed = build_embed_fn(cfg, device=cuda, variables=init_flat_variables(cfg, seed=3))
+    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=8, num_points=1024, device=cuda)
+    xs = [_minkloc_clouds(11, 8, spread=0.05), _minkloc_clouds(12, 8, spread=0.15)]
+    want = [ix.embed(x) for x in xs]  # the capture, then a replay
+    assert _rel_gap(want[0], want[1]) > 0.1
+    got, errors = ([], []), []
+
+    def work(i):
+        try:
+            stream = torch.cuda.Stream(cuda) if i else torch.cuda.current_stream(cuda)
+            with torch.cuda.stream(stream):
+                for _ in range(40):
+                    got[i].append(ix.embed(xs[i]))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(embed.graphed.graphs) == 1
+    for i in (0, 1):
+        assert len(got[i]) == 40
+        assert max(_rel_gap(d, want[i]) for d in got[i]) <= 1e-3
+
+
+def test_minkloc3dv2_serves_with_background_sync(cuda):
+    """MinkLoc3Dv2 behind a ``PlaceIndex`` that syncs in the background on
+    its own stream: the first embed captures the CUDA graph while the index
+    may sync (thread-local capture), and every submap then retrieves itself
+    at rank 0 through the fused query, a replay of the same graph."""
+    from epcnet_torch.configs import minkloc3dv2_config
+
+    cfg = minkloc3dv2_config(num_points=1024)
+    embed = build_embed_fn(cfg, device=cuda, variables=init_flat_variables(cfg, seed=1))
+    ix = PlaceIndex(embed, cfg.output_dim, embed_batch=8, max_k=5, num_points=1024,
+                    sync_mode="background", device=cuda)
+    rng = np.random.default_rng(8)
+    centers = rng.uniform(-0.8, 0.8, (16, 5, 3))
+    x = np.clip(centers[:, rng.integers(0, 5, 1024)]
+                + 0.05 * rng.standard_normal((16, 1024, 3)), -1, 1).astype(np.float32)
+    ix.add(x[:8])
+    ix.add(x[8:])
+    ix.flush()
+    for s in (0, 8):
+        ids, _ = ix.query(x[s:s + 8], k=5)
+        assert ids[:, 0].tolist() == list(range(s, s + 8))
+    assert len(embed.graphed.graphs) == 1
